@@ -1,0 +1,634 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py        # from the repository root; needs one card
+
+Phases, one JSON line each on standard output:
+
+  1. device  — the card, its power limit; TF32 off for matmuls and cuDNN;
+  2. build   — nvcc builds every kernel of ``src/repro_torch/csrc`` into
+     ``build/`` (one compiler per source, all started together, while the
+     host generates the data);
+  3. kernels — each kernel against its plain torch version on the card:
+     f32 / fp16 / int8, l2 / ip, tombstones on and off, ragged and empty
+     segments, a tail segment, k' > lmax.  Integer data (``rint(randn·4)``,
+     every f32 sum exact): positions, ids and values bitwise.  Random data,
+     and int8 (its dequantized rows are not integers): values allclose at
+     rtol 1e-5, positions equal up to boundary ties;
+  4. main path at the paper's scale (ELIPaperConfig: 1,000,000 vectors,
+     D = 128, a 32-label Zipf(1.5) universe, mean set size 3, c = 0.2,
+     k = 10) with a 1,000-query workload, 75% of it subsets of base label
+     sets: one EIS selection, then engines with f32 and int8+rerank
+     storage, each run with fused="auto" (the fused-scan kernel) and
+     fused=False (the gather-distance kernel): warmup, batched == looped
+     on 200 queries, recall@10 against an exact float64 brute force on the
+     card, warm QPS and p50/p99 latency of 32-query batches.  Every launch
+     count is set to 0 just before this phase and must have grown by its
+     end;
+  5. each kernel timed at the main path's top-tier shapes beside its plain
+     version and its bound.
+
+Then the ``{"kernels": [...]}`` line, the card's name and power limit as
+``nvidia-smi`` reports them, and the contract line
+``{"ok": true, "device": {...}}`` last.  Any failure raises and exits
+non-zero; without a card, or without the repository's ``src/repro_torch``
+beside this file, it exits non-zero before doing anything.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and
+# float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+# kernel vs plain: rtol 1e-5, and an absolute floor for values near 0 (an
+# f32 sum of 128 products of unit size carries ~1e-5 absolute error)
+RTOL, ATOL = 1e-5, 1e-4
+
+PAPER = dict(n_vectors=1_000_000, dim=128, n_labels=32, zipf_a=1.5,
+             avg_label_size=3.0, elastic_bound=0.2, k=10)
+N_QUERIES = 1000
+STORAGES = ("f32", "int8+rerank")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+
+
+class Clock:
+    """Device time of a callable: CUDA events around ``reps`` launches
+    after a warm-up, in milliseconds (host clock on a CPU device, which
+    only rehearsals use)."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def ms(self, fn, budget_s: float = 0.5, max_reps: int = 50) -> float:
+        import torch
+        fn()
+        self.sync()
+        t0 = time.perf_counter()
+        fn()
+        self.sync()
+        reps = max(1, min(max_reps, int(budget_s / max(
+            time.perf_counter() - t0, 1e-6))))
+        if self.dev.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / reps
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        self.sync()
+        return a.elapsed_time(b) / reps
+
+    def sync(self):
+        import torch
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _arena(dtype, N, D, W, integer, rng, dev):
+    import torch
+
+    from repro_torch.index.base import quantize_int8
+
+    xf = rng.standard_normal((N, D)).astype(np.float32)
+    if integer:
+        xf = np.rint(xf * 4).astype(np.float32)
+    scales = zeros = None
+    if dtype == "f32":
+        ax = xf
+    elif dtype == "fp16":
+        ax = xf.astype(np.float16)
+    else:
+        ax, scales, zeros = quantize_int8(xf)
+    xd = (ax.astype(np.float32) if dtype != "int8"
+          else zeros[:, None] + scales[:, None] * ax.astype(np.float32))
+    alw = (rng.random((N, W)) < 0.7).astype(np.int32)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)
+    return dict(ax=t(ax), alw=t(alw),
+                axn=t(np.sum(xd * xd, axis=1).astype(np.float32)),
+                scales=t(scales), zeros=t(zeros),
+                tomb=t(rng.integers(0, 256, (-(-N // 8),)).astype(np.uint8)),
+                xf=t(xf))
+
+
+def _queries(Q, D, W, integer, rng, dev):
+    import torch
+    q = rng.standard_normal((Q, D)).astype(np.float32)
+    if integer:
+        q = np.rint(q * 4).astype(np.float32)
+    lq = np.zeros((Q, W), np.int32)
+    lq[:, 0] = rng.integers(0, 2, Q)
+    return torch.from_numpy(q).to(dev), torch.from_numpy(lq).to(dev)
+
+
+def _compare(kv, kp, pv, pp, *, integer, int8, tag):
+    """Hold a kernel's (vals, pos) against the plain version's; returns
+    the largest absolute value error over finite entries."""
+    import torch
+    kv, pv = kv.cpu(), pv.cpu()
+    fin = torch.isfinite(pv)
+    if not torch.equal(torch.isfinite(kv), fin):
+        raise AssertionError(f"{tag}: finite masks differ")
+    err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
+    # integer data makes every f32 sum exact — except int8, whose
+    # dequantized rows are not integers: its sums round, so near-ties
+    # fall either way and positions are held up to ties like random data
+    exact = integer and not int8
+    if exact:
+        if not torch.equal(kv, pv):
+            raise AssertionError(f"{tag}: values differ (max {err})")
+    elif not torch.allclose(kv[fin], pv[fin], rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{tag}: values not allclose (max {err})")
+    if kp is not None:
+        diff = kp.cpu() != pp.cpu()
+        if exact and diff.any():
+            raise AssertionError(f"{tag}: positions differ")
+        # a position may differ only at a boundary tie, where the two
+        # values it displaced agree within the tolerance
+        if diff.any() and not torch.allclose(kv[diff], pv[diff], rtol=RTOL,
+                                             atol=ATOL):
+            raise AssertionError(f"{tag}: positions differ beyond ties")
+    return err
+
+
+def kernel_checks(dev, *, N=32768, D=128, W=4, Q=48, lmax=2048, seed=0):
+    """Every kernel and the segmented search against their plain versions
+    on synthetic arenas at the main path's row width."""
+    import torch
+
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    errs = {"fused_scan": 0.0, "segmented_gather_distance": 0.0}
+    cases = 0
+    for integer in (True, False):
+        for dtype in ("f32", "fp16", "int8"):
+            A = _arena(dtype, N, D, W, integer, rng, dev)
+            q, lq = _queries(Q, D, W, integer, rng, dev)
+            R = 3 * lmax
+            rc = torch.from_numpy(rng.integers(0, N, R).astype(np.int32)).to(dev)
+            starts = rng.integers(0, R - lmax, Q).astype(np.int32)
+            lens = rng.integers(0, lmax + 1, Q).astype(np.int32)
+            lens[::5] = 0
+            starts[-1], lens[-1] = R - 700, 700          # tail segment
+            starts = torch.from_numpy(starts).to(dev)
+            lens = torch.from_numpy(lens).to(dev)
+            int8 = dtype == "int8"
+            sz = dict(scales=A["scales"], zeros=A["zeros"])
+            for metric in ("l2", "ip"):
+                gids = torch.from_numpy(rng.integers(0, N, (Q, lmax))
+                                        .astype(np.int32)).to(dev)
+                glens = torch.clamp(lens, max=lmax).contiguous()
+                kv = gd.segmented_gather_distance(
+                    q, lq, A["ax"], A["alw"], gids, glens, metric=metric,
+                    **sz)
+                pv = gd.segmented_gather_distance_plain(
+                    q, lq, A["ax"], A["alw"], gids, glens, metric=metric,
+                    **sz)
+                errs["segmented_gather_distance"] = max(
+                    errs["segmented_gather_distance"],
+                    _compare(kv, None, pv, None, integer=integer, int8=int8,
+                             tag=f"gather {dtype} {metric} int={integer}"))
+                for tomb in (None, A["tomb"]):
+                    for kp, span, lm in ((10, 256, lmax), (40, lmax, lmax),
+                                         (40, 16, 16)):   # k' > lmax
+                        ln = torch.clamp(lens, max=lm).contiguous()
+                        args = (q, lq, A["ax"], A["alw"], A["axn"], rc,
+                                starts, ln, tomb, A["scales"], A["zeros"])
+                        kv, kp_ = fs.fused_scan_cuda(
+                            *args, kp=kp, lmax=lm, span=span, metric=metric,
+                            dtype=dtype)
+                        pv, pp = fs.fused_scan_plain(
+                            *args, kp=kp, lmax=lm, chunk=min(lm, 512),
+                            qtile=16, metric=metric, dtype=dtype)
+                        errs["fused_scan"] = max(errs["fused_scan"], _compare(
+                            kv, kp_, pv, pp, integer=integer, int8=int8,
+                            tag=f"fused {dtype} {metric} tomb="
+                                f"{tomb is not None} kp={kp} span={span} "
+                                f"int={integer}"))
+                        cases += 1
+    # the whole segmented search, every storage spec, fused and unfused,
+    # against the same call on host copies (the plain versions)
+    rng = np.random.default_rng(seed + 1)
+    for spec in ("f32", "fp16", "int8", "fp16+rerank", "int8+rerank"):
+        dtype = spec.split("+")[0]
+        A = _arena(dtype, 4096, D, W, True, rng, dev)
+        q, lq = _queries(32, D, W, True, rng, dev)
+        rc = torch.from_numpy(rng.integers(0, 4096, 3000).astype(np.int32)).to(dev)
+        st = torch.from_numpy(rng.integers(0, 1976, 32).astype(np.int32)).to(dev)
+        ln = torch.from_numpy(rng.integers(0, 1025, 32).astype(np.int32)).to(dev)
+        kw = dict(dtype=dtype, scales=A["scales"], zeros=A["zeros"])
+        if spec.endswith("+rerank"):
+            kw.update(rerank=A["xf"], rerank_norms=torch.sum(
+                A["xf"] * A["xf"], dim=1))
+        for fused in (True, False):
+            for metric in ("l2", "ip"):
+                call = dict(k=10, lmax=1024, metric=metric, fused=fused,
+                            backend="cuda", tomb=A["tomb"])
+                args = (q, lq, A["ax"], A["alw"], A["axn"], rc, st, ln)
+                got = ops.segmented_topk(*args, device=dev, **call, **kw)
+                want = ops.segmented_topk(
+                    *[a.cpu() for a in args], device="cpu", **call,
+                    **{k: v.cpu() if torch.is_tensor(v) else v
+                       for k, v in kw.items()})
+                tag = f"segmented_topk {spec} fused={fused} {metric}"
+                _compare(got[0], got[1], want[0], want[1], integer=True,
+                         int8=dtype == "int8", tag=tag)
+                same = got[1].cpu() == want[1]
+                if not torch.equal(got[2].cpu()[same], want[2][same]):
+                    raise AssertionError(f"{tag}: ids differ")
+                cases += 1
+    return dict(cases=cases, max_abs_err=errs,
+                tolerance=f"integer data: bitwise; random data and int8: "
+                          f"rtol {RTOL} atol {ATOL}, positions up to ties")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def paper_data(n: int, seed: int = 0):
+    from repro_torch.core import generate_query_label_sets
+    from repro_torch.data import VectorLabelDataset
+
+    ds = VectorLabelDataset(n=n, dim=PAPER["dim"], n_labels=PAPER["n_labels"],
+                            zipf_a=PAPER["zipf_a"],
+                            avg_size=PAPER["avg_label_size"], seed=seed)
+    vectors, label_sets = ds.generate()
+    qls = generate_query_label_sets(label_sets, N_QUERIES, seed=seed + 1,
+                                    from_base_fraction=0.75)
+    qv = np.random.default_rng(seed + 2).standard_normal(
+        (N_QUERIES, PAPER["dim"])).astype(np.float32)
+    return vectors, label_sets, qv, qls
+
+
+def exact_topk(vectors_dev, lx_dev, qv, qls, k, dev, block=64):
+    """Exact filtered top-k in float64 on the card (the recall truth)."""
+    import torch
+
+    from repro_torch.core import encode_many, masks_to_int32_words
+
+    x = vectors_dev.double()
+    xn = torch.sum(x * x, dim=1)
+    lq = torch.from_numpy(masks_to_int32_words(encode_many(qls))).to(dev)
+    n = x.shape[0]
+    out = []
+    for i in range(0, len(qls), block):
+        q = torch.from_numpy(qv[i:i + block]).to(dev).double()
+        d = torch.sum(q * q, 1)[:, None] - 2.0 * (q @ x.T) + xn[None, :]
+        ql = lq[i:i + block]
+        keep = torch.ones_like(d, dtype=torch.bool)
+        for w in range(ql.shape[1]):
+            keep &= (ql[:, None, w] & lx_dev[None, :, w]) == ql[:, None, w]
+        d = torch.where(keep, d, torch.full_like(d, float("inf")))
+        vals, idx = torch.topk(d, k, dim=1, largest=False)
+        out.append(torch.where(torch.isinf(vals), n, idx).cpu().numpy())
+    return np.concatenate(out)
+
+
+def main_path(dev, *, data, data_seconds, counts, clock):
+    """Selection once, then four engines (two storage specs, fused and
+    unfused); returns per-engine results and the engines (for the timing
+    phase)."""
+    import torch
+
+    from repro_torch.core import (GroupTable, LabelHybridEngine, greedy_eis,
+                                  observed_query_keys, recall_at_k)
+
+    vectors, label_sets, qv, qls = data
+    n = len(label_sets)
+    t0 = time.perf_counter()
+    qkeys = observed_query_keys(qls)
+    table = GroupTable.build(label_sets, qkeys)
+    selection = greedy_eis(table.closure_sizes, PAPER["elastic_bound"], qkeys)
+    t_select = time.perf_counter() - t0
+    emit("selection", n=n, queries=N_QUERIES, keys=len(qkeys),
+         selected=len(selection.selected),
+         total_entries=selection.total_entries,
+         entries_over_n=selection.total_entries / n,
+         data_seconds=data_seconds, select_seconds=t_select)
+
+    k = PAPER["k"]
+    results, engines, truth, lx_dev = {}, {}, None, None
+    for storage in STORAGES:
+        for fused in ("auto", False):
+            t0 = time.perf_counter()
+            eng = LabelHybridEngine(vectors, label_sets, table, selection,
+                                    None, "flat", "l2", {"fused": fused},
+                                    t_select, storage=storage, device=dev)
+            clock.sync()
+            build_s = time.perf_counter() - t0
+            if truth is None:
+                routed = eng.route_many(qls)
+                tiers = {}
+                for key in routed:
+                    span = 1 << max(eng.segments[key][1] - 1, 0).bit_length()
+                    tiers[span] = tiers.get(span, 0) + 1
+                emit("routing", queries_per_span_tier=dict(sorted(
+                    tiers.items())), span_tiers=sorted({
+                        1 << max(length - 1, 0).bit_length()
+                        for _, length in eng.segments.values()}))
+                lx_dev = eng.arena.label_words
+                vec_dev = (eng.arena.vectors if eng.arena.dtype == "f32"
+                           else eng.arena.rerank)
+                t0 = time.perf_counter()
+                truth = exact_topk(vec_dev, lx_dev, qv, qls, k, dev)
+                emit("truth", seconds=time.perf_counter() - t0)
+            warm = eng.warmup_serving([k], min_bucket=1, max_batch=64)
+            before = dict(counts())
+            t0 = time.perf_counter()
+            _, ids = eng.search_batched(qv, qls, k)
+            first_s = time.perf_counter() - t0
+            per_batch = {name: counts()[name] - before[name]
+                         for name in before}
+            recall = recall_at_k(ids, truth, n)
+            bd, bi = eng.search_batched(qv[:200], qls[:200], k)
+            ld, li = eng.search_looped(qv[:200], qls[:200], k)
+            looped_ok = bool(np.array_equal(bi, li) and np.array_equal(bd, ld)
+                             and np.array_equal(bi, ids[:200]))
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                eng.search_batched(qv, qls, k)
+                times.append(time.perf_counter() - t0)
+            lat = []
+            for rep in range(2):
+                for i in range(0, N_QUERIES, 32):
+                    t0 = time.perf_counter()
+                    eng.search_batched(qv[i:i + 32], qls[i:i + 32], k)
+                    if rep:
+                        lat.append(time.perf_counter() - t0)
+            name = f"{storage}/fused={fused}"
+            results[name] = dict(
+                storage=storage, fused=fused, build_seconds=build_s,
+                warmup_seconds=warm["seconds"], warmup_launches=warm["programs"],
+                first_batch_seconds=first_s,
+                warm_qps=N_QUERIES / float(np.median(times)),
+                batch_seconds=times, p50_ms_32=float(np.percentile(lat, 50)) * 1e3,
+                p99_ms_32=float(np.percentile(lat, 99)) * 1e3,
+                recall_at_10=recall, batched_equals_looped=looped_ok,
+                launches_per_1000_query_batch=per_batch,
+                arena_bytes=eng.arena.nbytes,
+                peak_device_bytes=(torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else None))
+            emit("engine", **results[name])
+            if not looped_ok:
+                raise AssertionError(f"{name}: batched != looped")
+            if recall < 0.999:
+                raise AssertionError(f"{name}: recall@10 {recall} < 0.999")
+            engines[name] = eng
+    return results, engines, (qv, qls)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernel times at the main path's shapes, beside their bounds
+# ---------------------------------------------------------------------------
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def top_tier(eng, qv, qls):
+    """The main path's largest span tier of the workload batch, as the
+    engine hands it to ``ops.segmented_topk``."""
+    import torch
+
+    from repro_torch.core import encode_many, masks_to_int32_words
+
+    qw = masks_to_int32_words(encode_many(qls))
+    routed = eng.route_many(qls)
+    *_, last = eng.arena_tier_batches(qv, qw, routed)
+    _, qp, lp, starts, lens, lmax, g = last
+    dev = eng.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return dict(q=t(qp), lq=t(lp), starts=t(starts), lens=t(lens), lmax=lmax,
+                queries=g)
+
+
+def _segment_work(T, arena, rc):
+    """Rows and ids the tier's segments touch, each counted once, and the
+    (query, row) pairs whose labels pass."""
+    import torch
+    N, R = arena.n, rc.shape[0]
+    pos_seen = torch.zeros(R, dtype=torch.bool, device=rc.device)
+    rows_seen = torch.zeros(N, dtype=torch.bool, device=rc.device)
+    rows_pass = torch.zeros(N, dtype=torch.bool, device=rc.device)
+    pairs = 0
+    for i in range(T["q"].shape[0]):
+        s, L = int(T["starts"][i]), min(int(T["lens"][i]), T["lmax"])
+        if L <= 0:
+            continue
+        seg = rc[s:s + L].long()
+        pos_seen[s:s + L] = True
+        rows_seen[seg] = True
+        ok = torch.all((T["lq"][i] & arena.label_words[seg]) == T["lq"][i],
+                       dim=1)
+        rows_pass[seg[ok]] = True
+        pairs += int(ok.sum())
+    return int(pos_seen.sum()), int(rows_seen.sum()), int(rows_pass.sum()), pairs
+
+
+def time_kernels(engines, workload, clock, counts_at_main, errs):
+    import torch
+
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import roofline
+
+    qv, qls = workload
+    eng = engines["f32/fused=auto"]
+    arena, rc = eng.arena, torch.from_numpy(eng.rows_concat).to(eng.device)
+    T = top_tier(eng, qv, qls)
+    Q, D = T["q"].shape
+    W = T["lq"].shape[1]
+    k = PAPER["k"]
+    n_pos, n_seen, n_pass, pairs = _segment_work(T, arena, rc)
+    out = []
+
+    # fused scan at the top tier, tiles from the Hopper tile model
+    tc = roofline.fused_scan_tiles(D, T["lmax"], "f32", Q, backend="cuda",
+                                   device=eng.device)
+    args = (T["q"], T["lq"], arena.vectors, arena.label_words, arena.norms,
+            rc, T["starts"], T["lens"], None, None, None)
+    kw = dict(kp=k, lmax=T["lmax"], metric="l2", dtype="f32")
+    plain_chunk = min(T["lmax"], 16384)
+    plain_qtile = max(1, min(Q, (1 << 29) // (plain_chunk * D * 4)))
+    kv, kp_ = fs.fused_scan_cuda(*args, span=tc.rows_per_chunk, **kw)
+    pv, pp = fs.fused_scan_plain(*args, chunk=plain_chunk, qtile=plain_qtile,
+                                 **kw)
+    err = _compare(kv, kp_, pv, pp, integer=False, int8=False,
+                   tag="fused_scan at the top tier")
+    ms = clock.ms(lambda: fs.fused_scan_cuda(*args, span=tc.rows_per_chunk,
+                                             **kw))
+    plain_ms = clock.ms(lambda: fs.fused_scan_plain(
+        *args, chunk=plain_chunk, qtile=plain_qtile, **kw), max_reps=3)
+    nbytes = (Q * D * 4 + Q * W * 4 + 8 * Q + 4 * n_pos + 4 * W * n_seen
+              + (4 * D + 4) * n_pass + Q * k * 8)
+    bound_ms, bound_by = _bound(nbytes, pairs * (2 * D + 3))
+    out.append(dict(
+        name="fused_scan", route="cuda",
+        source="src/repro_torch/csrc/fused_scan.cu",
+        replaces="src/repro/kernels/fused_scan.py:167",
+        launches=counts_at_main["fused_scan"],
+        max_abs_err=max(err, errs["fused_scan"]), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        shape=dict(queries=T["queries"], q_bucket=Q, lmax=T["lmax"],
+                   span_per_block=tc.rows_per_chunk, kp=k, dim=D,
+                   pairs_passing=pairs, rows_touched=n_seen)))
+
+    # gather distance: the unfused executor's first chunk at the top tier
+    chunk = min(ops.SEG_CHUNK_CUDA, T["lmax"])
+    pos = torch.arange(chunk, dtype=torch.int32, device=eng.device)
+    gid, valid = ref.segment_gids(rc, T["starts"], T["lens"], pos)
+    gids = gid.to(torch.int32).contiguous()
+    glens = torch.sum(valid, dim=1).to(torch.int32)
+    gargs = (T["q"], T["lq"], arena.vectors, arena.label_words, gids, glens)
+    kv = gd.segmented_gather_distance(*gargs)
+    pv = gd.segmented_gather_distance_plain(*gargs)
+    err = _compare(kv, None, pv, None, integer=False, int8=False,
+                   tag="gather at the top tier")
+    ms = clock.ms(lambda: gd.segmented_gather_distance(*gargs))
+    plain_ms = clock.ms(lambda: gd.segmented_gather_distance_plain(*gargs),
+                        max_reps=5)
+    live = valid.reshape(-1)
+    flat = gid.reshape(-1)[live]
+    passing = torch.all((T["lq"][:, None, :] & arena.label_words[gid])
+                        == T["lq"][:, None, :], dim=-1) & valid
+    rows_seen = int(torch.unique(flat).numel())
+    rows_pass = int(torch.unique(gid[passing]).numel())
+    gpairs = int(passing.sum())
+    nbytes = (Q * D * 4 + Q * W * 4 + 4 * Q + 4 * gids.numel()
+              + 4 * W * rows_seen + 4 * D * rows_pass + 4 * kv.numel())
+    bound_ms, bound_by = _bound(nbytes, gpairs * 3 * D)
+    out.append(dict(
+        name="segmented_gather_distance", route="cuda",
+        source="src/repro_torch/csrc/gather_distance.cu",
+        replaces="src/repro/kernels/gather_distance.py:95",
+        launches=counts_at_main["segmented_gather_distance"],
+        max_abs_err=max(err, errs["segmented_gather_distance"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None,
+        shape=dict(queries=T["queries"], q_bucket=Q, columns=chunk, dim=D,
+                   pairs_passing=gpairs, rows_touched=rows_seen)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return res.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository (needs "
+              "src/repro_torch beside this file)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import gather_distance as gd
+
+    t_all = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    props = torch.cuda.get_device_properties(dev)
+    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, sms=props.multi_processor_count,
+         smem_per_block=getattr(props, "shared_memory_per_block", None),
+         smem_per_sm=getattr(props, "shared_memory_per_multiprocessor", None),
+         threads_per_sm=props.max_threads_per_multi_processor)
+
+    clock = Clock(dev)
+    with ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        build = pool.submit(cuda_build.build)
+        # the host generates the paper-scale data while nvcc runs
+        data = paper_data(PAPER["n_vectors"])
+        t_data = time.perf_counter() - t0
+        seconds = build.result()
+        emit("build", nvcc_seconds=seconds, data_seconds=t_data,
+             phase_seconds=time.perf_counter() - t0,
+             ptxas=sorted({line.split(":", 1)[1].strip()
+                           for name in cuda_build.SOURCES
+                           for line in (cuda_build.BUILD_DIR / f"{name}.log")
+                           .read_text().splitlines() if "Used" in line}))
+
+    t0 = time.perf_counter()
+    checks = kernel_checks(dev)
+    emit("kernels_vs_plain", seconds=time.perf_counter() - t0, **checks)
+
+    def counts():
+        return {"fused_scan": fs.fused_segmented_scan.launches,
+                "segmented_gather_distance":
+                    gd.segmented_gather_distance.launches}
+
+    fs.fused_segmented_scan.launches = 0
+    gd.segmented_gather_distance.launches = 0
+    t0 = time.perf_counter()
+    results, engines, workload = main_path(
+        dev, data=data, data_seconds=t_data, counts=counts, clock=clock)
+    at_main = counts()
+    emit("main_path", seconds=time.perf_counter() - t0, launches=at_main)
+    for name, c in at_main.items():
+        if c <= 0:
+            raise AssertionError(f"the main path never launched {name}")
+
+    t0 = time.perf_counter()
+    kernels = time_kernels(engines, workload, clock, at_main,
+                           checks["max_abs_err"])
+    emit("kernel_times", seconds=time.perf_counter() - t0)
+    print(json.dumps({"kernels": kernels}, default=float), flush=True)
+    print(smi, flush=True)
+    emit("total", seconds=time.perf_counter() - t_all)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,105 @@
+"""Segmented gather + fused filtered distance (DESIGN.md §3).
+
+The port of ``repro/kernels/gather_distance.py::
+segmented_gather_distance_pallas``: [Q, L] masked distances of each query
+to its own list of arena rows.  Two roles on the main path: the scan stage
+of the unfused executor (the engine default) and the exact f32 recompute
+of the ``+rerank`` storage specs.
+
+:func:`segmented_gather_distance` is the wrapper.  On a CPU tensor it runs
+:func:`segmented_gather_distance_plain`; on a CUDA tensor it launches the
+hand-written kernel in ``csrc/gather_distance.cu`` (bound, design and the
+TPU kernel it replaces are in that file's head) or raises.  Both compute
+the TPU kernel's DIRECT form ``sum((q - x)²)`` for l2 — not the norms form
+of the scan oracle — so the port's ``"cuda"`` backend matches the JAX
+package's ``"pallas"`` backend; the two forms differ in value, not in
+position (DESIGN.md §3.9).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build, ref
+
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.uint8: 2}
+_STORAGE = {torch.float32: "f32", torch.float16: "fp16", torch.uint8: "int8"}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"seg_gather_distance": [_P] * 9 + [_I] * 7 + [_P]}
+MAX_LABEL_WORDS = 8
+MAX_DIM = 12_288          # the query row is staged in 48 KB of shared memory
+
+
+def segmented_gather_distance_plain(q, lq, x, lxw, gids, lens, *,
+                                    metric: str = "l2", scales=None,
+                                    zeros=None):
+    """Plain torch version: the same function on any device."""
+    g = gids.long()
+    xr = ref.dequantize_rows(x[g], _STORAGE[x.dtype],
+                             None if scales is None else scales[g],
+                             None if zeros is None else zeros[g])
+    if metric == "ip":
+        d = -torch.sum(q[:, None, :] * xr, dim=-1)
+    else:
+        t = q[:, None, :] - xr
+        d = torch.sum(t * t, dim=-1)
+    ok = torch.all((lq[:, None, :] & lxw[g]) == lq[:, None, :], dim=-1)
+    li = torch.arange(gids.shape[1], device=gids.device)
+    valid = li[None, :] < lens[:, None]
+    return torch.where(ok & valid, d, torch.full_like(d, ref.INF))
+
+
+def segmented_gather_distance(q, lq, x, lxw, gids, lens, *,
+                              metric: str = "l2", scales=None, zeros=None):
+    """``q`` [Q, D] f32, ``lq`` [Q, W] i32, ``x`` [N, D] f32|f16|u8 arena
+    rows, ``lxw`` [N, W] i32, ``gids`` [Q, L] i32 arena row ids (in range),
+    ``lens`` [Q] i32 (positions >= len are +inf), ``scales``/``zeros`` [N]
+    f32 for u8 codes.  Returns [Q, L] f32 masked distances."""
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if q.device.type == "cpu":
+        return segmented_gather_distance_plain(
+            q, lq, x, lxw, gids, lens, metric=metric, scales=scales,
+            zeros=zeros)
+    Q, D = q.shape
+    L = gids.shape[1]
+    W = lq.shape[1]
+    int8 = x.dtype == torch.uint8
+    operands = dict(q=(q, torch.float32), lq=(lq, torch.int32),
+                    x=(x, x.dtype), lxw=(lxw, torch.int32),
+                    gids=(gids, torch.int32), lens=(lens, torch.int32))
+    if int8:
+        operands.update(scales=(scales, torch.float32),
+                        zeros=(zeros, torch.float32))
+    for name, (t, dt) in operands.items():
+        if t is None or t.device != q.device or t.dtype != dt \
+                or not t.is_contiguous():
+            raise ValueError(f"segmented_gather_distance: {name} must be a "
+                             f"contiguous {dt} tensor on {q.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"unsupported arena dtype {x.dtype}")
+    if x.shape[1] != D or lxw.shape[1] != W or gids.shape[0] != Q \
+            or lens.shape != (Q,) or lq.shape[0] != Q:
+        raise ValueError("segmented_gather_distance: shape mismatch")
+    if W > MAX_LABEL_WORDS or D > MAX_DIM or Q > 65_535:
+        raise ValueError(f"segmented_gather_distance: W={W} (max "
+                         f"{MAX_LABEL_WORDS}), D={D} (max {MAX_DIM}), "
+                         f"Q={Q} (max 65535)")
+    out = torch.empty((Q, L), dtype=torch.float32, device=q.device)
+    if Q == 0 or L == 0:
+        return out
+    lib = cuda_build.load("gather_distance", _SIGNATURES)
+    vec = D % 16 == 0 and x.data_ptr() % 16 == 0
+    p = cuda_build.ptr
+    code = lib.seg_gather_distance(
+        p(q), p(lq), p(x), p(lxw), p(gids), p(lens),
+        p(scales) if int8 else None, p(zeros) if int8 else None, p(out),
+        Q, L, D, W, _DTYPES[x.dtype], int(metric == "ip"), int(vec),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    segmented_gather_distance.launches += 1
+    cuda_build.check(code, "seg_gather_distance")
+    return out
+
+
+segmented_gather_distance.launches = 0

@@ -1,0 +1,193 @@
+"""The segmented arena search of the main path (port of
+``repro/kernels/ops.py``: ``segmented_topk`` and ``masked_topk_tail``).
+
+One call per candidate-span tier of a batch: a chunked, label/tombstone
+filtered scan with a running top-k', an optional exact f32 rerank of a
+compressed-scan shortlist, and global ids resolved on the device.  Backends:
+
+  * ``"ref"`` — plain torch on any device, arithmetically the JAX
+    package's ``"ref"`` executor (norms-form l2, multiply + minor-axis
+    reduce, (value, position) ties);
+  * ``"cuda"`` — the hand-written kernels: ``fused_scan`` for the fused
+    scan stage, ``segmented_gather_distance`` for the unfused scan stage
+    and the rerank stage (direct-form l2, as the JAX ``"pallas"``
+    backend).  On CPU tensors their wrappers run the plain versions.
+
+Every top-k is a stable sort (``ref.lex_topk``): ``torch.topk`` does not
+break ties by index.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..index.base import resolve_device
+from ..launch import roofline
+from ..obs import metrics as _metrics
+from . import ref
+from .fused_scan import fused_segmented_scan, resolve_fused
+from .gather_distance import segmented_gather_distance
+
+# Unfused executor chunk: the JAX package's span chunk on the ``"ref"``
+# backend; the ``"cuda"`` backend takes wider chunks because each one
+# costs a handful of launches from the host.
+SEG_CHUNK = 2048
+SEG_CHUNK_CUDA = 16384
+
+BACKENDS = ("ref", "cuda")
+
+_M_DISPATCH = _metrics.counter(
+    "eli_segmented_dispatches_total",
+    "segmented_topk dispatches by launch signature",
+    ("backend", "dtype", "bucket"),
+)
+
+
+def masked_topk_tail(d, tomb, n: int, *, k: int):
+    """Epilogue of a flat masked-distance top-k: the optional tombstone
+    AND over the row ids, the k > n inf-pad, the (distance, index) top-k
+    and the (+inf, n) empty-slot normalization."""
+    if tomb is not None:
+        alive = ref.tombstone_mask(
+            tomb, torch.arange(n, dtype=torch.int32, device=d.device))
+        d = torch.where(alive[None, :], d, torch.full_like(d, ref.INF))
+    if k > n:
+        d = torch.nn.functional.pad(d, (0, k - n), value=ref.INF)
+    vals, idxs = ref.lex_topk(d, k)
+    empty = torch.isinf(vals)
+    idxs = torch.where(empty, n, idxs)
+    vals = torch.where(empty, ref.INF, vals)
+    return vals, idxs.to(torch.int32)
+
+
+def _tensor(a, device, dtype=None):
+    if a is None:
+        return None
+    t = torch.as_tensor(a, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def segmented_topk(q, lq, ax, alw, axn, rows_concat, starts, lens, *, k: int,
+                   lmax: int, metric: str = "l2", backend: str | None = None,
+                   chunk: int | None = None, tomb=None, dtype: str = "f32",
+                   scales=None, zeros=None, rerank=None, rerank_norms=None,
+                   kprime: int | None = None, fused=False,
+                   qtile: int | None = None, device="cuda"):
+    """Single-launch segmented arena search (DESIGN.md §3).
+
+    ``q`` [Q, D] queries, ``lq`` [Q, W] label words; ``ax``/``alw``/``axn``
+    the arena (scan-tier rows, label words, squared norms); ``rows_concat``
+    [R] the CSR row-id table; ``starts``/``lens`` [Q] each query's segment;
+    ``lmax`` bounds every ``len`` (the span tier).  Inputs may be numpy or
+    tensors; they are placed on ``device`` (``"cuda"`` by default, which
+    raises without a card).  ``backend`` defaults to ``"cuda"`` on a CUDA
+    device and ``"ref"`` elsewhere.
+
+    Returns (vals [Q, k] asc, pos [Q, k] int32 segment positions, pos ==
+    ``lmax`` ⇒ empty; gid [Q, k] int32 arena row ids, gid == N ⇒ empty).
+
+    ``dtype``/``scales``/``zeros`` select the scan tier; ``rerank``/
+    ``rerank_norms`` add the exact rerank of a ``kprime`` (default 4k)
+    shortlist.  ``fused`` (True / False / "auto") selects the fused scan
+    stage; with ``chunk`` unset its tiles come from the tile model
+    (``launch/roofline.py``).  ``tomb`` is an optional packed tombstone
+    bitmap.  An explicit ``chunk`` always wins.
+    """
+    dev = resolve_device(device)
+    backend = backend or ("cuda" if dev.type == "cuda" else "ref")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unknown metric {metric!r}")
+    q = _tensor(q, dev, torch.float32).contiguous()
+    lq = _tensor(lq, dev, torch.int32).contiguous()
+    starts = _tensor(starts, dev, torch.int32).contiguous()
+    lens = _tensor(lens, dev, torch.int32).contiguous()
+    ax, alw, axn = _tensor(ax, dev), _tensor(alw, dev), _tensor(axn, dev)
+    rows_concat = _tensor(rows_concat, dev, torch.int32)
+    tomb = _tensor(tomb, dev, torch.uint8)
+    scales, zeros = _tensor(scales, dev), _tensor(zeros, dev)
+    rerank, rerank_norms = _tensor(rerank, dev), _tensor(rerank_norms, dev)
+
+    fused = resolve_fused(fused, backend=backend)
+    if fused and chunk is None:
+        tc = roofline.fused_scan_tiles(ax.shape[1], lmax, dtype, q.shape[0],
+                                       backend=backend,
+                                       label_words=alw.shape[1], device=dev)
+        chunk, qtile = tc.rows_per_chunk, qtile or tc.queries_per_tile
+        while lmax % chunk:   # non-pow2 lmax (direct callers): degrade
+            chunk //= 2
+    if chunk is None:
+        chunk = min(SEG_CHUNK_CUDA if backend == "cuda" else SEG_CHUNK, lmax)
+    if lmax % chunk:
+        raise ValueError(f"chunk {chunk} must divide lmax {lmax}")
+    if _metrics.enabled():
+        _M_DISPATCH.labels(backend, dtype, q.shape[0]).inc()
+
+    kp = k if rerank is None else max(k, min(kprime or 4 * k, lmax))
+    n, R = ax.shape[0], rows_concat.shape[0]
+    if q.shape[0] == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev))
+    if fused:
+        vals, pos = fused_segmented_scan(
+            q, lq, ax, alw, axn, rows_concat, starts, lens, tomb, scales,
+            zeros, kp=kp, lmax=lmax, chunk=chunk, qtile=qtile or 8,
+            metric=metric, dtype=dtype, backend=backend)
+    else:
+        if backend == "cuda":
+            distance = functools.partial(
+                _gather_scan_distance, ax=ax, alw=alw, tomb=tomb,
+                scales=scales, zeros=zeros, metric=metric)
+        else:
+            def distance(qt, lqt, gid, valid):
+                return ref.scan_distances(qt, lqt, ax, alw, axn, gid, valid,
+                                          metric=metric, dtype=dtype,
+                                          scales=scales, zeros=zeros,
+                                          tomb=tomb)
+        vals, pos = ref.chunked_scan(q, lq, rows_concat, starts, lens,
+                                     distance, kp=kp, lmax=lmax, chunk=chunk)
+    if rerank is not None:
+        distance_fn = None
+        if backend == "cuda":
+            # shortlist rows already passed the label/tombstone filter;
+            # position-sorted, the first n_listed lanes are the live ones,
+            # which is exactly the kernel's lens mask
+            def distance_fn(qt, lqt, rr, sgid, n_listed):
+                return segmented_gather_distance(
+                    qt, lqt, rr, alw, sgid.to(torch.int32).contiguous(),
+                    n_listed, metric=metric)
+        vals, pos = ref.rerank_shortlist(q, lq, rerank, rerank_norms,
+                                         rows_concat, starts, pos, k=k,
+                                         lmax=lmax, metric=metric,
+                                         distance_fn=distance_fn)
+    empty = torch.isinf(vals)
+    pos = torch.where(empty, lmax, pos)
+    vals = torch.where(empty, ref.INF, vals)
+    # global ids resolved on the device: empty slot -> the arena
+    # cardinality sentinel, so the executor never remaps ids on the host
+    if R:
+        p = torch.clamp(starts[:, None] + pos, 0, R - 1).long()
+        gid = torch.where(empty, n, rows_concat[p])
+    else:
+        gid = torch.full_like(pos, n)
+    return vals, pos.to(torch.int32), gid.to(torch.int32)
+
+
+def _gather_scan_distance(q, lq, gid, valid, *, ax, alw, tomb, scales, zeros,
+                          metric):
+    """One unfused chunk on the ``"cuda"`` backend: the gather kernel
+    fuses the label filter and the length mask (``valid`` is a prefix of
+    each row, so its count is the kernel's ``lens``); the tombstone AND
+    composes outside it and can only add +inf lanes."""
+    d = segmented_gather_distance(
+        q, lq, ax, alw, gid.to(torch.int32).contiguous(),
+        torch.sum(valid, dim=1).to(torch.int32), metric=metric,
+        scales=scales, zeros=zeros)
+    if tomb is not None:
+        d = torch.where(ref.tombstone_mask(tomb, gid), d,
+                        torch.full_like(d, ref.INF))
+    return d
