@@ -9,23 +9,36 @@ Phases, one JSON line each on standard output:
   2. build   — nvcc builds every kernel of ``src/repro_torch/csrc`` into
      ``build/`` (one compiler per source, all started together, while the
      host generates the data);
-  3. kernels — each kernel against its plain torch version on the card:
-     f32 / fp16 / int8, l2 / ip, tombstones on and off, ragged and empty
-     segments, a tail segment, k' > lmax.  Integer data (``rint(randn·4)``,
-     every f32 sum exact): positions, ids and values bitwise.  Random data,
-     and int8 (its dequantized rows are not integers): values allclose at
-     rtol 1e-5, positions equal up to boundary ties;
+  3. kernels — each kernel against its plain torch version on the card.
+     The segmented kernels: f32 / fp16 / int8, l2 / ip, tombstones on and
+     off, ragged and empty segments, a tail segment, k' > lmax.  The dense
+     kernels (masked_distance, filtered_topk): l2 / ip, N not a multiple
+     of the row tile, ragged Q, the empty query mask, an empty filter,
+     k up to the pool's 32, k > N, a tombstone bitmap, and the same query
+     rows bitwise equal at buckets 1, 8 and 256.  Integer data
+     (``rint(randn·4)``, every f32 sum exact): positions, ids and values
+     bitwise.  Random data, and int8 (its dequantized rows are not
+     integers): values allclose at rtol 1e-5, positions equal up to
+     boundary ties;
   4. main path at the paper's scale (ELIPaperConfig: 1,000,000 vectors,
      D = 128, a 32-label Zipf(1.5) universe, mean set size 3, c = 0.2,
      k = 10) with a 1,000-query workload, 75% of it subsets of base label
-     sets: one EIS selection, then engines with f32 and int8+rerank
+     sets: one EIS selection, then flat engines with f32 and int8+rerank
      storage, each run with fused="auto" (the fused-scan kernel) and
      fused=False (the gather-distance kernel): warmup, batched == looped
      on 200 queries, recall@10 against an exact float64 brute force on the
-     card, warm QPS and p50/p99 latency of 32-query batches.  Every launch
-     count is set to 0 just before this phase and must have grown by its
-     end;
-  5. each kernel timed at the main path's top-tier shapes beside its plain
+     card, warm QPS and p50/p99 latency of 32-query batches;
+  4b. the same selection on the ``ivf`` backend (nprobe 8, 8 k-means
+     iterations, √n clusters): build seconds, batched == looped on 200
+     queries, the ``"cuda"`` results against the same indexes on
+     ``kernel_backend="ref"`` (equal up to ties), recall@10 (reported,
+     not gated: IVF is approximate), warm QPS and p50/p99;
+  4c. the private-copy FlatIndex over all 1,000,000 rows, the
+     no-selection PostFiltering scan: recall@10 >= 0.999, search ==
+     search_padded sliced, warm QPS and p50/p99.
+     Every launch count is set to 0 just before each of 4, 4b and 4c and
+     read just after; each kernel of that path must have launched;
+  5. each kernel timed at its path's top-tier shapes beside its plain
      version and its bound.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -147,10 +160,11 @@ def _queries(Q, D, W, integer, rng, dev):
 
 
 def _compare(kv, kp, pv, pp, *, integer, int8, tag):
-    """Hold a kernel's (vals, pos) against the plain version's; returns
-    the largest absolute value error over finite entries."""
+    """Hold a kernel's (vals, pos) against the plain version's (moved to
+    the kernel's device); returns the largest absolute value error over
+    finite entries."""
     import torch
-    kv, pv = kv.cpu(), pv.cpu()
+    pv = pv.to(kv.device)
     fin = torch.isfinite(pv)
     if not torch.equal(torch.isfinite(kv), fin):
         raise AssertionError(f"{tag}: finite masks differ")
@@ -165,7 +179,7 @@ def _compare(kv, kp, pv, pp, *, integer, int8, tag):
     elif not torch.allclose(kv[fin], pv[fin], rtol=RTOL, atol=ATOL):
         raise AssertionError(f"{tag}: values not allclose (max {err})")
     if kp is not None:
-        diff = kp.cpu() != pp.cpu()
+        diff = kp != pp.to(kp.device)
         if exact and diff.any():
             raise AssertionError(f"{tag}: positions differ")
         # a position may differ only at a boundary tie, where the two
@@ -270,6 +284,99 @@ def kernel_checks(dev, *, N=32768, D=128, W=4, Q=48, lmax=2048, seed=0):
                           f"rtol {RTOL} atol {ATOL}, positions up to ties")
 
 
+def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
+    """The dense kernels (masked_distance, filtered_topk) against their
+    plain versions: l2 / ip, N not a multiple of the row tile, ragged Q
+    on both query tiles (5 and 37 queries), the empty query mask, an empty
+    filter (a label no row holds), k = 1, 10 and 32 (the pool's capacity),
+    k > N, a tombstone bitmap (``ops.filtered_topk``'s composed path);
+    filtered_topk's values bitwise those of masked_distance; and the same
+    query rows bitwise equal at buckets 1, 8 and 256."""
+    import torch
+
+    from repro_torch.kernels import filtered_topk as ft
+    from repro_torch.kernels import masked_distance as md
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    errs = {"masked_distance": 0.0, "filtered_topk": 0.0}
+    cases = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for integer in (True, False):
+        for n in (N, 7):
+            x = rng.standard_normal((n, D)).astype(np.float32)
+            if integer:
+                x = np.rint(x * 4).astype(np.float32)
+            lx = t((rng.random((n, W)) < 0.7).astype(np.int32))
+            x = t(x)
+            tomb = t(rng.integers(0, 256, (-(-n // 8),)).astype(np.uint8))
+            for Q in (5, 37):
+                q, lq = _queries(Q, D, W, integer, rng, dev)
+                lq[0] = 0                          # the empty query mask
+                lq[-1, 0] = 1 << 30                # no row (0 / 1) holds it
+                for metric in ("l2", "ip"):
+                    tag = f"n={n} Q={Q} {metric} int={integer}"
+                    kd = md.masked_distance(q, x, lq, lx, metric=metric)
+                    pd = md.masked_distance_plain(q, x, lq, lx, metric=metric)
+                    errs["masked_distance"] = max(
+                        errs["masked_distance"],
+                        _compare(kd, None, pd, None, integer=integer,
+                                 int8=False, tag=f"masked_distance {tag}"))
+                    if not torch.isinf(kd[-1]).all():
+                        raise AssertionError(f"{tag}: empty filter passed")
+                    for k in (1, 10, 32):
+                        kv, ki = ft.filtered_topk(q, x, lq, lx, k=k,
+                                                  metric=metric)
+                        pv, pi = ft.filtered_topk_plain(q, x, lq, lx, k=k,
+                                                        metric=metric)
+                        errs["filtered_topk"] = max(
+                            errs["filtered_topk"],
+                            _compare(kv, ki, pv, pi, integer=integer,
+                                     int8=False,
+                                     tag=f"filtered_topk {tag} k={k}"))
+                        fin = torch.isfinite(kv)
+                        at = torch.gather(kd, 1, torch.clamp(ki, max=n - 1)
+                                          .long())
+                        if not torch.equal(at[fin], kv[fin]) or \
+                                (ki[~fin] != n).any():
+                            raise AssertionError(
+                                f"{tag} k={k}: filtered_topk disagrees "
+                                f"with masked_distance")
+                        cases += 1
+                    got = ops.filtered_topk(q, x, lq, lx, k=10, metric=metric,
+                                            tomb=tomb, backend="cuda",
+                                            device=dev)
+                    want = ops.filtered_topk(q, x, lq, lx, k=10,
+                                             metric=metric, tomb=tomb,
+                                             backend="ref", device=dev)
+                    _compare(got[0], got[1], want[0], want[1],
+                             integer=integer, int8=False,
+                             tag=f"filtered_topk tomb {tag}")
+                    cases += 2
+    # batch independence: bucket 1, 8 and 256 rows bitwise equal
+    x = t(rng.standard_normal((N, D)).astype(np.float32))
+    lx = t((rng.random((N, W)) < 0.7).astype(np.int32))
+    q, lq = _queries(256, D, W, False, rng, dev)
+    for metric in ("l2", "ip"):
+        full = md.masked_distance(q, x, lq, lx, metric=metric)
+        top = ft.filtered_topk(q, x, lq, lx, k=10, metric=metric)
+        for b in (1, 8):
+            if not torch.equal(md.masked_distance(q[:b], x, lq[:b], lx,
+                                                  metric=metric), full[:b]):
+                raise AssertionError(f"masked_distance bucket {b} != 256")
+            part = ft.filtered_topk(q[:b], x, lq[:b], lx, k=10,
+                                    metric=metric)
+            if not all(torch.equal(a, c[:b]) for a, c in zip(part, top)):
+                raise AssertionError(f"filtered_topk bucket {b} != 256")
+        cases += 1
+    return dict(cases=cases, max_abs_err=errs,
+                tolerance=f"integer data: bitwise; random data: rtol {RTOL} "
+                          f"atol {ATOL}, positions up to ties; buckets 1 / 8 "
+                          f"/ 256: bitwise")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -315,8 +422,9 @@ def exact_topk(vectors_dev, lx_dev, qv, qls, k, dev, block=64):
 
 def main_path(dev, *, data, data_seconds, counts, clock):
     """Selection once, then four engines (two storage specs, fused and
-    unfused); returns per-engine results and the engines (for the timing
-    phase)."""
+    unfused); returns per-engine results, the engines (for the timing
+    phase) and what the later paths share: the workload, its exact truth
+    and the selection."""
     import torch
 
     from repro_torch.core import (GroupTable, LabelHybridEngine, greedy_eis,
@@ -404,7 +512,160 @@ def main_path(dev, *, data, data_seconds, counts, clock):
             if recall < 0.999:
                 raise AssertionError(f"{name}: recall@10 {recall} < 0.999")
             engines[name] = eng
-    return results, engines, (qv, qls)
+    return results, engines, dict(qv=qv, qls=qls, truth=truth, table=table,
+                                  selection=selection, select_seconds=t_select)
+
+
+def _serve_numbers(search, qv, qls, k):
+    """Warm QPS of the 1,000-query batch (median of 3) and p50 / p99
+    latency of 32-query batches (the second of two passes)."""
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        search(qv, qls, k)
+        times.append(time.perf_counter() - t0)
+    lat = []
+    for rep in range(2):
+        for i in range(0, len(qls), 32):
+            t0 = time.perf_counter()
+            search(qv[i:i + 32], qls[i:i + 32], k)
+            if rep:
+                lat.append(time.perf_counter() - t0)
+    return dict(warm_qps=len(qls) / float(np.median(times)),
+                batch_seconds=times,
+                p50_ms_32=float(np.percentile(lat, 50)) * 1e3,
+                p99_ms_32=float(np.percentile(lat, 99)) * 1e3)
+
+
+def _ivf_cuda_vs_ref(eng, qv, qls, k, qsel, dev):
+    """The ivf engine's ``"cuda"`` results against the same indexes
+    searched with ``kernel_backend="ref"`` (plain torch on the card).  A
+    query may differ only at a tie: at the top-k boundary (the displaced
+    values agree within the tolerance) or at the probe boundary (the two
+    backends order near-equal centroid distances differently)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    qs, ls = qv[qsel], [qls[i] for i in qsel]
+    got = eng.search_batched(qs, ls, k)
+    for ix in eng.indexes.values():
+        ix.kernel_backend = "ref"
+    try:
+        want = eng.search_batched(qs, ls, k)
+    finally:
+        for ix in eng.indexes.values():
+            ix.kernel_backend = "cuda"
+    gd, gi = (torch.from_numpy(a) for a in got)
+    wd, wi = (torch.from_numpy(a) for a in want)
+    rows = (gi != wi).any(dim=1).nonzero().flatten().tolist()
+    value_ties = probe_ties = 0
+    for r in rows:
+        diff = gi[r] != wi[r]
+        fin = torch.isfinite(wd[r])
+        if torch.equal(torch.isfinite(gd[r]), fin) and torch.allclose(
+                gd[r][diff & fin], wd[r][diff & fin], rtol=RTOL, atol=ATOL):
+            value_ties += 1
+            continue
+        ix = eng.indexes[eng.route(tuple(ls[r]))]
+        q = torch.from_numpy(qs[r:r + 1]).to(dev)
+        none = torch.zeros((1, ix._cwords.shape[1]), dtype=torch.int32,
+                           device=dev)
+        cds = [ops.masked_distance(q, ix._cents, none, ix._cwords,
+                                   metric=ix.metric, backend=b, device=dev)[0]
+               for b in ("cuda", "ref")]
+        orders = [torch.argsort(c, stable=True) for c in cds]
+        if torch.equal(orders[0], orders[1]) or not torch.allclose(
+                cds[0][orders[0]], cds[1][orders[1]], rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"ivf cuda vs ref: query {qsel[r]} differs "
+                                 f"beyond ties")
+        probe_ties += 1
+    return dict(queries=len(qsel), equal=len(qsel) - len(rows),
+                value_ties=value_ties, probe_ties=probe_ties)
+
+
+def ivf_path(dev, *, data, ctx, counts, clock):
+    """Phase 4b: the engine on the ``ivf`` backend (JAX defaults: nprobe 8,
+    8 k-means iterations, √n clusters; f32 storage) over the phase-4
+    selection.  Returns its results and the engine."""
+    from repro_torch.core import EMPTY_KEY, LabelHybridEngine, recall_at_k
+
+    vectors, label_sets, qv, qls = data
+    n, k = len(label_sets), PAPER["k"]
+    t0 = time.perf_counter()
+    eng = LabelHybridEngine(vectors, label_sets, ctx["table"],
+                            ctx["selection"], None, "ivf", "l2", {},
+                            ctx["select_seconds"], device=dev)
+    clock.sync()
+    build_s = time.perf_counter() - t0
+    before = dict(counts())
+    t0 = time.perf_counter()
+    _, ids = eng.search_batched(qv, qls, k)
+    first_s = time.perf_counter() - t0
+    per_batch = {name: counts()[name] - before[name] for name in before}
+    recall = recall_at_k(ids, ctx["truth"], n)
+    bd, bi = eng.search_batched(qv[:200], qls[:200], k)
+    ld, li = eng.search_looped(qv[:200], qls[:200], k)
+    looped_ok = bool(np.array_equal(bi, li) and np.array_equal(bd, ld)
+                     and np.array_equal(bi, ids[:200]))
+    if not looped_ok:
+        raise AssertionError("ivf: batched != looped")
+    routed = eng.route_many(qls)
+    top = [i for i, key in enumerate(routed) if key == EMPTY_KEY]
+    qsel = sorted(set(range(64)) | set(top[:32]))
+    vs_ref = _ivf_cuda_vs_ref(eng, qv, qls, k, qsel, dev)
+    res = dict(backend="ivf", nprobe=8, kmeans_iters=8,
+               indexes=len(eng.indexes), build_seconds=build_s,
+               first_batch_seconds=first_s, recall_at_10=recall,
+               batched_equals_looped=looped_ok, cuda_vs_ref=vs_ref,
+               launches_per_1000_query_batch=per_batch,
+               private_bytes=eng.stats().nbytes,
+               top_index_rows=int(eng.indexes[EMPTY_KEY].num_vectors),
+               top_index_clusters=int(eng.indexes[EMPTY_KEY].n_clusters),
+               queries_at_top_index=len(top),
+               **_serve_numbers(eng.search_batched, qv, qls, k))
+    emit("engine", **res)
+    return res, eng
+
+
+def flat_scan_path(dev, *, data, ctx, counts, clock):
+    """Phase 4c: the private-copy FlatIndex over all N rows — the
+    no-selection PostFiltering scan — answering the workload through
+    filtered_topk.  Returns its results and the index."""
+    from repro_torch.core import encode_many, masks_to_int32_words, recall_at_k
+    from repro_torch.index import FlatIndex
+
+    vectors, label_sets, qv, qls = data
+    n, k = len(label_sets), PAPER["k"]
+    lx = masks_to_int32_words(encode_many(label_sets))
+    qw = masks_to_int32_words(encode_many(qls))
+    t0 = time.perf_counter()
+    flat = FlatIndex(vectors, lx, device=dev)
+    clock.sync()
+    build_s = time.perf_counter() - t0
+    before = dict(counts())
+    d, ids = flat.search(qv, qw, k)
+    per_batch = {name: counts()[name] - before[name] for name in before}
+    recall = recall_at_k(ids, ctx["truth"], n)
+    bucket = 1 << (len(qls) - 1).bit_length()
+    qp = np.zeros((bucket, qv.shape[1]), np.float32)
+    qp[:len(qls)] = qv
+    lp = np.zeros((bucket, qw.shape[1]), np.int32)
+    lp[:len(qls)] = qw
+    pd, pi = flat.search_padded(qp, lp, k)
+    padded_ok = bool(np.array_equal(pi[:len(qls)].cpu().numpy(), ids)
+                     and np.array_equal(pd[:len(qls)].cpu().numpy(), d))
+    res = dict(index="FlatIndex", rows=n, build_seconds=build_s,
+               recall_at_10=recall, search_equals_padded=padded_ok,
+               launches_per_1000_query_batch=per_batch,
+               **_serve_numbers(lambda q, ls, kk: flat.search(
+                   q, masks_to_int32_words(encode_many(ls)), kk), qv, qls, k))
+    emit("flat_scan", **res)
+    if not padded_ok:
+        raise AssertionError("FlatIndex: search != search_padded sliced")
+    if recall < 0.999:
+        raise AssertionError(f"FlatIndex: recall@10 {recall} < 0.999")
+    return res, flat
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +806,92 @@ def time_kernels(engines, workload, clock, counts_at_main, errs):
     return out
 
 
+def _dense_bound(Q: int, N: int, D: int, W: int, out_bytes: int):
+    """Bound of a dense filtered pass: each input read once and the
+    output written once; Q·N·(2D + 3) flops for the norms-form distances
+    plus 2D for each norm."""
+    nbytes = 4 * (Q + N) * (D + W) + out_bytes
+    return _bound(nbytes, Q * N * (2 * D + 3) + 2 * D * (Q + N))
+
+
+def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
+    """masked_distance at the ivf engine's top tier (the workload's
+    queries routed to the largest index, on their power-of-two bucket)
+    and filtered_topk at the whole-dataset scan's [1024-bucket, N] shape,
+    each beside its plain version and its bound."""
+    import torch
+
+    from repro_torch.core import (EMPTY_KEY, encode_many,
+                                  masks_to_int32_words)
+    from repro_torch.kernels import filtered_topk as ft
+    from repro_torch.kernels import masked_distance as md
+
+    qv, qls = ctx["qv"], ctx["qls"]
+    dev = flat.device
+    qw = masks_to_int32_words(encode_many(qls))
+    out = []
+
+    def padded(qids):
+        b = 1 << (len(qids) - 1).bit_length()
+        qp = torch.zeros((b, qv.shape[1]), dtype=torch.float32, device=dev)
+        lp = torch.zeros((b, qw.shape[1]), dtype=torch.int32, device=dev)
+        qp[:len(qids)] = torch.from_numpy(qv[qids]).to(dev)
+        lp[:len(qids)] = torch.from_numpy(qw[qids]).to(dev)
+        return qp, lp
+
+    top = [i for i, key in enumerate(ivf_eng.route_many(qls))
+           if key == EMPTY_KEY]
+    ix = ivf_eng.indexes[EMPTY_KEY]
+    qp, lp = padded(top)
+    args = (qp, ix._xb, lp, ix._lxw)
+    kd = md.masked_distance(*args)
+    err = _compare(kd, None, md.masked_distance_plain(*args), None,
+                   integer=False, int8=False,
+                   tag="masked_distance at the ivf top tier")
+    ms = clock.ms(lambda: md.masked_distance(*args))
+    plain_ms = clock.ms(lambda: md.masked_distance_plain(*args), max_reps=2)
+    Q, D = qp.shape
+    N, W = ix._lxw.shape
+    bound_ms, bound_by = _dense_bound(Q, N, D, W, 4 * Q * N)
+    out.append(dict(
+        name="masked_distance", route="cuda",
+        source="src/repro_torch/csrc/masked_distance.cu",
+        replaces="src/repro/kernels/masked_distance.py:64",
+        launches=launches["masked_distance"],
+        max_abs_err=max(err, errs["masked_distance"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None,
+        shape=dict(queries=len(top), q_bucket=Q, rows=N, dim=D)))
+    del kd
+
+    k = PAPER["k"]
+    qp, lp = padded(list(range(len(qls))))
+    args = (qp, flat.vectors, lp, flat.label_words)
+    kv, ki = ft.filtered_topk(*args, k=k)
+    pv, pi = ft.filtered_topk_plain(*args, k=k)
+    err = _compare(kv, ki, pv, pi, integer=False, int8=False,
+                   tag="filtered_topk at the whole-dataset scan")
+    ms = clock.ms(lambda: ft.filtered_topk(*args, k=k))
+    plain_ms = clock.ms(lambda: ft.filtered_topk_plain(*args, k=k),
+                        max_reps=1)
+    Q, D = qp.shape
+    N, W = flat.label_words.shape
+    span, splits = ft.span_split(Q, N, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    bound_ms, bound_by = _dense_bound(Q, N, D, W, 8 * Q * k)
+    out.append(dict(
+        name="filtered_topk", route="cuda",
+        source="src/repro_torch/csrc/filtered_topk.cu",
+        replaces="src/repro/kernels/filtered_topk.py:69",
+        launches=launches["filtered_topk"],
+        max_abs_err=max(err, errs["filtered_topk"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None,
+        shape=dict(queries=len(qls), q_bucket=Q, rows=N, dim=D, k=k,
+                   span_per_block=span, splits=splits)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -566,8 +913,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import filtered_topk as ft
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import masked_distance as md
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -599,27 +948,54 @@ def main() -> int:
 
     t0 = time.perf_counter()
     checks = kernel_checks(dev)
+    dense = dense_kernel_checks(dev)
+    checks["cases"] += dense["cases"]
+    checks["max_abs_err"].update(dense["max_abs_err"])
+    checks["dense_tolerance"] = dense["tolerance"]
     emit("kernels_vs_plain", seconds=time.perf_counter() - t0, **checks)
 
+    wrappers = {"fused_scan": fs.fused_segmented_scan,
+                "segmented_gather_distance": gd.segmented_gather_distance,
+                "masked_distance": md.masked_distance,
+                "filtered_topk": ft.filtered_topk}
+
     def counts():
-        return {"fused_scan": fs.fused_segmented_scan.launches,
-                "segmented_gather_distance":
-                    gd.segmented_gather_distance.launches}
+        return {name: fn.launches for name, fn in wrappers.items()}
 
-    fs.fused_segmented_scan.launches = 0
-    gd.segmented_gather_distance.launches = 0
-    t0 = time.perf_counter()
-    results, engines, workload = main_path(
-        dev, data=data, data_seconds=t_data, counts=counts, clock=clock)
-    at_main = counts()
-    emit("main_path", seconds=time.perf_counter() - t0, launches=at_main)
-    for name, c in at_main.items():
-        if c <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    def drive(phase, kernels_of_path, run):
+        """Run one path with every launch count set to 0 just before it
+        and read just after; each kernel of the path must have launched."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        got = counts()
+        emit(phase, seconds=time.perf_counter() - t0, launches=got)
+        for name in kernels_of_path:
+            if got[name] <= 0:
+                raise AssertionError(f"{phase} never launched {name}")
+        return out, got
+
+    (results, engines, ctx), at_flat = drive(
+        "main_path", ("fused_scan", "segmented_gather_distance"),
+        lambda: main_path(dev, data=data, data_seconds=t_data, counts=counts,
+                          clock=clock))
+    (_, ivf_eng), at_ivf = drive(
+        "ivf_path", ("masked_distance",),
+        lambda: ivf_path(dev, data=data, ctx=ctx, counts=counts, clock=clock))
+    (_, flat), at_scan = drive(
+        "flat_scan_path", ("filtered_topk",),
+        lambda: flat_scan_path(dev, data=data, ctx=ctx, counts=counts,
+                               clock=clock))
+    launches = dict(at_flat)
+    for name in ("masked_distance", "filtered_topk"):
+        launches[name] = at_ivf[name] + at_scan[name]
 
     t0 = time.perf_counter()
-    kernels = time_kernels(engines, workload, clock, at_main,
+    kernels = time_kernels(engines, (ctx["qv"], ctx["qls"]), clock, launches,
                            checks["max_abs_err"])
+    kernels += time_dense_kernels(ivf_eng, flat, ctx, clock, launches,
+                                  checks["max_abs_err"])
     emit("kernel_times", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(smi, flush=True)

@@ -6,16 +6,17 @@ Pipeline (paper §3-§5):
   2. run selection — EIS (fixed elastic-factor bound c) or SIS (fixed space
      budget τ, binary search for the best c),
   3. materialize one index per selected label-set key over its closure
-     S(L): a zero-copy view of the shared device :class:`Arena` through an
-     int32 CSR segment table (``rows_concat`` + per-key offsets),
+     S(L): on the arena-native ``flat`` backend a zero-copy view of the
+     shared device :class:`Arena` through an int32 CSR segment table
+     (``rows_concat`` + per-key offsets); on a private-storage backend
+     (``ivf``) an index over its own copy of the rows,
   4. route each query to its assigned index (max elastic factor) and run a
      filtered top-k inside it; ids come back global.
 
-The port runs the arena-native ``flat`` backend.  The private-storage
-backends (ivf / graph / distributed) are ROADMAP queue A10 and raise
-``NotImplementedError`` here.  Every device tensor lives on the engine's
-``device`` (``"cuda"`` by default; without a card that raises unless the
-caller passes ``device="cpu"``).
+The ``graph`` and ``distributed`` backends are not ported yet (ROADMAP
+queue A10) and raise ``NotImplementedError``.  Every device tensor lives
+on the engine's ``device`` (``"cuda"`` by default; without a card that
+raises unless the caller passes ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -27,9 +28,10 @@ import numpy as np
 import torch
 
 from ..index import flat as _flat  # noqa: F401  (registers "flat")
+from ..index import ivf as _ivf  # noqa: F401  (registers "ivf")
 from ..index.base import (Arena, as_row_ids, check_global_id_contract,
-                          get_index_builder, parse_storage, pow2_bucket,
-                          resolve_device, serving_buckets)
+                          dispatch_padded, get_index_builder, parse_storage,
+                          pow2_bucket, resolve_device, serving_buckets)
 from ..kernels import ops as _kernel_ops
 from ..kernels import ref as _ref
 from ..kernels.fused_scan import resolve_fused
@@ -43,7 +45,7 @@ from .labels import (encode_label_set, encode_many, key_contains,
                      key_to_mask, mask_key, masks_to_int32_words)
 from .sis import SISResult, sis
 
-PRIVATE_STORAGE_BACKENDS = ("ivf", "graph", "distributed")
+UNPORTED_BACKENDS = ("graph", "distributed")
 
 # Search-path telemetry (DESIGN.md §6.3): host-side bookkeeping gated on
 # the obs enabled flags; search bits are untouched either way.
@@ -101,14 +103,15 @@ _M_ACHIEVED = _metrics.gauge(
 
 
 def record_search_telemetry(engine, routed, qmasks, k, n_queries, *,
-                            t_start, t_route, tier_bucket, min_bucket=1):
+                            t_start, t_route, tier_bucket=None,
+                            min_bucket=1):
     """Per-batch query-path accounting: metrics and query cards.  Called
     only when telemetry is enabled; pure host work.  The port has no
     program cache yet, so every card reports ``recompiled=False``."""
     t_end = time.perf_counter()
     backend = engine.backend
     arena = engine.arena
-    dtype = arena.dtype
+    dtype = arena.dtype if arena is not None else "f32"
     bound = engine.selection.c
 
     if _metrics.enabled():
@@ -140,11 +143,14 @@ def record_search_telemetry(engine, routed, qmasks, k, n_queries, *,
             else:
                 _M_UNSEEN.inc(count)
         if tracing:
-            span_tier = pow2_bucket(engine.segments[skey][1])
-            q_bucket = tier_bucket[span_tier]
-            shortlist = None
-            if arena.rerank is not None:
-                shortlist = max(k, min(4 * k, span_tier))
+            span_tier = q_bucket = shortlist = None
+            if arena is not None:
+                span_tier = pow2_bucket(engine.segments[skey][1])
+                q_bucket = tier_bucket[span_tier]
+                if arena.rerank is not None:
+                    shortlist = max(k, min(4 * k, span_tier))
+            else:
+                q_bucket = pow2_bucket(count, min_bucket)
             _trace.get_tracer().add_card(_trace.QueryCard(
                 query_key=qkey, selected_key=skey, n_queries=count,
                 elastic_factor=factor, bound=bound, span_tier=span_tier,
@@ -188,8 +194,8 @@ class EngineStats:
     achieved_c: float            # min elastic factor over the workload
     select_seconds: float
     build_seconds: float
-    nbytes: int                  # arena + segment table
-    arena_nbytes: int = 0        # shared-arena share of nbytes
+    nbytes: int                  # arena + segment table + private storage
+    arena_nbytes: int = 0        # shared-arena share of nbytes (0 = none)
     segment_nbytes: int = 0      # CSR row-id table share of nbytes
     live_rows: int = 0           # rows a search can return
     tombstoned_rows: int = 0     # deleted-but-not-yet-compacted rows
@@ -204,7 +210,7 @@ class EngineStats:
 
 
 class LabelHybridEngine:
-    """Build-once, search-many ELI engine over the shared device arena."""
+    """Build-once, search-many ELI engine over a pluggable index backend."""
 
     # bound on memoized fallback routes for query keys outside the
     # selection workload
@@ -214,19 +220,22 @@ class LabelHybridEngine:
                  table: GroupTable, selection: EISResult,
                  sis_result: SISResult | None, backend: str, metric: str,
                  backend_params: dict, select_seconds: float,
-                 storage: str = "f32", device="cuda"):
-        if backend in PRIVATE_STORAGE_BACKENDS:
+                 storage: str = "f32", device="cuda",
+                 indexes: Mapping[tuple[int, ...], object] | None = None):
+        if backend in UNPORTED_BACKENDS:
             raise NotImplementedError(
-                f"backend {backend!r} keeps private storage; the port runs "
-                f"the arena-native flat backend only so far (ROADMAP queue "
-                f"A10: private-storage backends)")
+                f"backend {backend!r} is not ported yet; the port runs the "
+                f"flat and ivf backends (ROADMAP queue A10: graph, then "
+                f"distributed)")
         self.device = resolve_device(device)
         self.sis_result = sis_result
         self.backend = backend
         self.metric = metric
-        default = "cuda" if self.device.type == "cuda" else "ref"
+        builder = get_index_builder(backend)
+        self._arena_native = hasattr(builder, "build_view")
         self.backend_params = dict(backend_params)
-        self.backend_params.setdefault("kernel_backend", default)
+        self.backend_params.setdefault(
+            "kernel_backend", _kernel_ops.default_backend(self.device))
         self._seg_backend = self.backend_params["kernel_backend"]
         # fused scan stage (DESIGN.md §3.9): resolved once so views,
         # executor and warmup agree
@@ -234,58 +243,89 @@ class LabelHybridEngine:
             self.backend_params.get("fused", False),
             backend=self._seg_backend)
         parse_storage(storage)   # validate the spec before any device work
+        if storage != "f32" and not self._arena_native:
+            raise ValueError(
+                f"storage={storage!r} needs an arena-native backend (the "
+                f"compressed tiers live in the shared arena); backend "
+                f"{backend!r} keeps private f32 copies")
         self.storage = storage
 
         self.indexes: dict[tuple[int, ...], object] = {}
         self.rows: dict[tuple[int, ...], np.ndarray] = {}
         self.segments: dict[tuple[int, ...], tuple[int, int]] = {}
         t0 = time.perf_counter()
-        self.rebase(vectors, label_sets, table, selection)
+        self.rebase(vectors, label_sets, table, selection, indexes=indexes)
         self._build_seconds = time.perf_counter() - t0
         self._select_seconds = select_seconds
 
     def rebase(self, vectors: np.ndarray,
                label_sets: Sequence[tuple[int, ...]], table: GroupTable,
-               selection: EISResult) -> None:
+               selection: EISResult, *,
+               indexes: Mapping[tuple[int, ...], object] | None = None
+               ) -> None:
         """Swap the dataset under the engine and rematerialize — the single
         home of dataset installation: one upload into a fresh device
-        :class:`Arena`, then :meth:`apply_selection`."""
+        :class:`Arena` (arena-native backends; private-storage backends
+        copy their rows at build instead), then :meth:`apply_selection`.
+        Every retained index is dropped: it belongs to the old rows.
+        ``indexes`` seeds private indexes already built over THIS dataset's
+        selected keys (:meth:`from_reference_state`); ``apply_selection``
+        reuses them."""
         self.vectors = np.ascontiguousarray(vectors, dtype=np.float32)
         self.label_sets = list(label_sets)
         self.table = table
         self.label_words = masks_to_int32_words(encode_many(self.label_sets))
         check_global_id_contract(len(self.label_sets))
-        self.indexes, self.segments, self.rows = {}, {}, {}
-        self.arena = Arena.from_host(self.vectors, self.label_words,
-                                     storage=self.storage, device=self.device)
+        self.indexes = dict(indexes) if indexes is not None else {}
+        self.segments, self.rows = {}, {}
+        self.arena = (Arena.from_host(self.vectors, self.label_words,
+                                      storage=self.storage, device=self.device)
+                      if self._arena_native else None)
         self.apply_selection(selection)
 
     def apply_selection(self, selection: EISResult) -> None:
         """(Re)materialize the engine for ``selection``: the CSR segment
         table (every selected index is an int32 row-id segment of ONE
-        concatenated ``rows_concat``, uploaded once), one zero-copy view
-        per key, and the vectorized routing tables."""
+        concatenated ``rows_concat``), then one zero-copy view per key
+        over the arena (arena-native backends, with the table uploaded
+        once) or one private index per key over ``vectors[rows]``
+        (retained instances are reused; the table stays on the host),
+        and the vectorized routing tables."""
         n = check_global_id_contract(len(self.label_sets))
         builder = get_index_builder(self.backend)
+        old_rows, old_indexes = self.rows, self.indexes
         self.selection = selection
         self.indexes, self.rows, self.segments = {}, {}, {}
         parts, off = [], 0
         for key in selection.selected:
-            rows = (np.arange(n, dtype=np.int64) if key == EMPTY_KEY
-                    else self.table.closure_members(key))
-            rows = as_row_ids(rows, n)   # int32 + sentinel contract
+            rows = old_rows.get(key)
+            if rows is None:
+                rows = (np.arange(n, dtype=np.int64) if key == EMPTY_KEY
+                        else self.table.closure_members(key))
+                rows = as_row_ids(rows, n)   # int32 + sentinel contract
             self.rows[key] = rows
             self.segments[key] = (off, rows.size)
             parts.append(rows)
             off += rows.size
         self.rows_concat = (np.concatenate(parts) if parts
                             else np.zeros(0, np.int32))
-        self._rows_concat_dev = torch.from_numpy(self.rows_concat).to(
-            self.device)
-        for key, (start, length) in self.segments.items():
-            self.indexes[key] = builder.build_view(
-                self.arena, self._rows_concat_dev, start, length,
-                metric=self.metric, **self.backend_params)
+        if self._arena_native:
+            self._rows_concat_dev = torch.from_numpy(self.rows_concat).to(
+                self.device)
+            for key, (start, length) in self.segments.items():
+                self.indexes[key] = builder.build_view(
+                    self.arena, self._rows_concat_dev, start, length,
+                    metric=self.metric, **self.backend_params)
+        else:
+            self._rows_concat_dev = None
+            for key, rows in self.rows.items():
+                index = old_indexes.get(key)
+                if index is None:
+                    index = builder.build(
+                        self.vectors[rows], self.label_words[rows],
+                        metric=self.metric, device=self.device,
+                        **self.backend_params)
+                self.indexes[key] = index
 
         # routing table for the batched executor: the selected keys (in
         # dict order — route()'s tie-break order) as a dense uint64 mask
@@ -354,7 +394,10 @@ class LabelHybridEngine:
         ``selected`` (key -> size, in selection order), ``assignment``,
         ``cost``, ``rounds``, ``c``, ``storage``, ``backend_params`` and
         ``metric`` (``backend`` optional, default flat).  The JAX
-        ``"pallas"`` kernel backend maps to ``"cuda"``."""
+        ``"pallas"`` kernel backend maps to ``"cuda"``.  With
+        ``backend="ivf"``, ``ivf_states`` maps every selected key to its
+        JAX index's clusters (``IVFIndex.from_reference_state``), which
+        the engine installs instead of running k-means."""
         label_sets = list(state["label_sets"])
         table = GroupTable.build_groups_only(label_sets)
         table.closure_sizes = dict(state["closure_sizes"])
@@ -365,10 +408,19 @@ class LabelHybridEngine:
         params = dict(state.get("backend_params", {}))
         if params.get("kernel_backend") == "pallas":
             params["kernel_backend"] = "cuda"
+        backend = state.get("backend", "flat")
+        metric = state.get("metric", "l2")
+        indexes = None
+        if backend == "ivf":
+            dev = resolve_device(device)
+            kb = params.get("kernel_backend")
+            indexes = {key: _ivf.IVFIndex.from_reference_state(
+                st, metric=metric, kernel_backend=kb, device=dev)
+                for key, st in state["ivf_states"].items()}
         return cls(state["vectors"], label_sets, table, selection, None,
-                   state.get("backend", "flat"), state.get("metric", "l2"),
-                   params, 0.0, storage=state.get("storage", "f32"),
-                   device=device)
+                   backend, metric, params, 0.0,
+                   storage=state.get("storage", "f32"), device=device,
+                   indexes=indexes)
 
     # -- routing --------------------------------------------------------------
     def route(self, query_label_set: tuple[int, ...]) -> tuple[int, ...]:
@@ -432,16 +484,39 @@ class LabelHybridEngine:
         return self.search_batched(queries, query_label_sets, k,
                                    **search_params)
 
+    @property
+    def supports_lazy_deletes(self) -> bool:
+        """True ⇔ every selected index can serve a pending-delete bitmap:
+        arena-native engines by construction, private-storage engines when
+        every index declares ``supports_tombstones``."""
+        if self._arena_native:
+            return True
+        return all(getattr(type(ix), "supports_tombstones", False)
+                   for ix in self.indexes.values())
+
     def search_batched(self, queries: np.ndarray,
                        query_label_sets: Sequence[tuple[int, ...]], k: int,
-                       *, min_bucket: int = 1) -> tuple[np.ndarray, np.ndarray]:
-        """Batched multi-index executor (single-dispatch segmented form):
-        route the batch in one vectorized pass, partition it by the
-        power-of-two candidate span of each query's segment, and run ONE
-        ``ops.segmented_topk`` per span tier — O(#tiers) launches per batch,
-        not one per routed index.  Every tier is queued before the first
-        copy back to the host.  Bit-identical to :meth:`search_looped`:
-        each query's top-k does not depend on its batch neighbors."""
+                       *, min_bucket: int = 1, tomb_by_key=None
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """Batched multi-index executor.  Routes the batch in one
+        vectorized pass, then:
+
+          * arena-native backends (flat): partition the batch by the
+            power-of-two candidate span of each query's segment and run ONE
+            ``ops.segmented_topk`` per span tier — O(#tiers) launches per
+            batch, not one per routed index;
+          * private-storage backends (ivf): one ``search_padded`` per
+            routed index on the group's power-of-two bucket, with the
+            local → global id map applied on the host.
+
+        Every launch is queued before the first copy back to the host.
+        Bit-identical to :meth:`search_looped`: each query's top-k does not
+        depend on its batch neighbors.
+
+        ``tomb_by_key`` (private-storage backends only): per-selected-key
+        packed tombstone bitmaps over each index's LOCAL rows; keys absent
+        from it search tombstone-free.  Arena-native engines take deletes
+        through the arena's bitmap and reject it."""
         telem = _metrics.enabled() or _trace.enabled()
         t_start = time.perf_counter() if telem else 0.0
         queries = np.asarray(queries, dtype=np.float32)
@@ -456,6 +531,20 @@ class LabelHybridEngine:
         qwords = masks_to_int32_words(qmasks)
         routed = self.route_many(query_label_sets, qmasks)
         t_route = time.perf_counter() if telem else 0.0
+        if not self._arena_native:
+            self._search_private(queries, qwords, routed, k, n, out_d, out_i,
+                                 min_bucket=min_bucket,
+                                 tomb_by_key=tomb_by_key)
+            if telem:
+                record_search_telemetry(
+                    self, routed, qmasks, k, Q, t_start=t_start,
+                    t_route=t_route, min_bucket=min_bucket)
+            return out_d, out_i
+        if tomb_by_key is not None:
+            raise TypeError(
+                "tomb_by_key is the private-storage lazy-delete path; "
+                "arena-native engines take deletes through the arena's "
+                "tombstone bitmap")
         pend = []
         tier_bucket: dict[int, int] = {}
         for qids, qp, lp, starts, lens, lmax, g in \
@@ -478,6 +567,30 @@ class LabelHybridEngine:
                 t_route=t_route, tier_bucket=tier_bucket,
                 min_bucket=min_bucket)
         return out_d, out_i
+
+    def _search_private(self, queries, qwords, routed, k, n, out_d, out_i,
+                        *, min_bucket, tomb_by_key):
+        """The private-storage half of :meth:`search_batched`: one padded
+        dispatch per routed index, every group queued before the first
+        copy back, then the local → global id map (local id ==
+        ``rows.size`` ⇒ empty slot ⇒ ``n``)."""
+        by_key: dict[tuple[int, ...], list[int]] = {}
+        for qi, key in enumerate(routed):
+            by_key.setdefault(key, []).append(qi)
+        pend = []
+        for key, qids in by_key.items():
+            tomb = tomb_by_key.get(key) if tomb_by_key else None
+            extra = {} if tomb is None else {"tomb": tomb}
+            d, li = dispatch_padded(self.indexes[key].search_padded,
+                                    queries[qids], qwords[qids], k,
+                                    min_bucket=min_bucket, **extra)
+            pend.append((key, qids, d, li))
+        # single synchronization point: every group is already queued
+        for key, qids, d, li in pend:
+            g = len(qids)
+            out_d[qids] = d[:g].cpu().numpy()
+            out_i[qids] = _local_to_global(li[:g].cpu().numpy(),
+                                           self.rows[key], n)
 
     def arena_tier_batches(self, queries: np.ndarray, qwords: np.ndarray,
                            routed: Sequence[tuple[int, ...]],
@@ -509,11 +622,11 @@ class LabelHybridEngine:
             yield qids, qp, lp, seg[0], seg[1], lmax, g
 
     def search_looped(self, queries: np.ndarray,
-                      query_label_sets: Sequence[tuple[int, ...]], k: int
-                      ) -> tuple[np.ndarray, np.ndarray]:
-        """Reference executor: per-key Python loop, one un-bucketed view
-        search per selected index — the parity oracle for
-        :meth:`search_batched`."""
+                      query_label_sets: Sequence[tuple[int, ...]], k: int,
+                      tomb_by_key=None) -> tuple[np.ndarray, np.ndarray]:
+        """Reference executor: per-key Python loop, one un-bucketed
+        ``search`` per selected index — the parity oracle for
+        :meth:`search_batched`, ``tomb_by_key`` included."""
         queries = np.asarray(queries, dtype=np.float32)
         Q = queries.shape[0]
         n = len(self.label_sets)
@@ -526,19 +639,22 @@ class LabelHybridEngine:
             by_key.setdefault(self.route(tuple(qls)), []).append(qi)
 
         for key, qids in by_key.items():
-            rows = self.rows[key]
-            d, li = self.indexes[key].search(queries[qids], qwords[qids], k)
-            empty = li >= rows.size
-            gi = np.where(empty, n, rows[np.clip(li, 0, rows.size - 1)])
+            tomb = tomb_by_key.get(key) if tomb_by_key else None
+            extra = {} if tomb is None else {"tomb": tomb}
+            d, li = self.indexes[key].search(queries[qids], qwords[qids], k,
+                                             **extra)
             out_d[qids] = d
-            out_i[qids] = gi.astype(np.int32)
+            out_i[qids] = _local_to_global(li, self.rows[key], n)
         return out_d, out_i
 
     # -- warmup ----------------------------------------------------------------
     def warmup(self, ks: Sequence[int], buckets: Sequence[int]) -> dict:
-        """Run every (k ∈ ks, Q-bucket ∈ buckets, candidate-span tier)
-        launch once on zero queries, so the first real batches find the
-        kernels built and loaded.  Returns ``{"seconds", "programs"}``."""
+        """Run every launch the first real batches need once on zero
+        queries, so they find the kernels built and loaded: on arena-native
+        backends every (k ∈ ks, Q-bucket ∈ buckets, candidate-span tier)
+        segmented search, on private-storage backends every selected
+        index's ``search_padded`` per (k, Q-bucket).  Returns
+        ``{"seconds", "programs"}``."""
         t0 = time.perf_counter()
         D = self.vectors.shape[1]
         W = self.label_words.shape[1]
@@ -551,6 +667,11 @@ class LabelHybridEngine:
                 qz = np.zeros((bucket, D), np.float32)
                 lz = np.zeros((bucket, W), np.int32)
                 zero = np.zeros(bucket, np.int32)
+                if not self._arena_native:
+                    for index in self.indexes.values():
+                        index.search_padded(qz, lz, k)
+                        programs += 1
+                    continue
                 for lmax in span_tiers:
                     _kernel_ops.segmented_topk(
                         qz, lz, self.arena.vectors, self.arena.label_words,
@@ -574,9 +695,15 @@ class LabelHybridEngine:
         qkeys = [k for k in self.table.closure_sizes if k != EMPTY_KEY]
         achieved = min_elastic_factor(qkeys, self.table.closure_sizes,
                                       self.selection.selected)
-        tiers = self.arena.tier_nbytes
-        segment_nbytes = int(self._rows_concat_dev.numel()
-                             * self._rows_concat_dev.element_size())
+        arena = self.arena
+        tiers = (arena.tier_nbytes if arena is not None else
+                 {"codes": 0, "scales": 0, "rerank": 0, "tombstone": 0})
+        arena_nbytes = arena.nbytes if arena is not None else 0
+        # the CSR table is on the device only for arena-native backends;
+        # views report nbytes = 0, private indexes their own copies
+        segment_nbytes = (int(self._rows_concat_dev.numel()
+                              * self._rows_concat_dev.element_size())
+                          if self._rows_concat_dev is not None else 0)
         st = EngineStats(
             n=len(self.label_sets),
             n_candidates=len(self.table.closure_sizes),
@@ -586,11 +713,12 @@ class LabelHybridEngine:
             achieved_c=achieved,
             select_seconds=self._select_seconds,
             build_seconds=self._build_seconds,
-            nbytes=self.arena.nbytes + segment_nbytes,
-            arena_nbytes=self.arena.nbytes,
+            nbytes=(arena_nbytes + segment_nbytes
+                    + sum(ix.nbytes for ix in self.indexes.values())),
+            arena_nbytes=arena_nbytes,
             segment_nbytes=segment_nbytes,
             live_rows=len(self.label_sets),
-            arena_version=self.arena.version,
+            arena_version=arena.version if arena is not None else 0,
             storage=self.storage,
             codes_nbytes=tiers["codes"],
             scales_nbytes=tiers["scales"],
@@ -599,6 +727,15 @@ class LabelHybridEngine:
         )
         publish_engine_gauges(st)
         return st
+
+
+def _local_to_global(li: np.ndarray, rows: np.ndarray, n: int) -> np.ndarray:
+    """Local ids of one index -> global ids (local id >= ``rows.size`` ⇒
+    empty slot ⇒ ``n``)."""
+    if rows.size == 0:
+        return np.full(li.shape, n, np.int32)
+    gi = np.where(li >= rows.size, n, rows[np.clip(li, 0, rows.size - 1)])
+    return gi.astype(np.int32)
 
 
 def brute_force_filtered(vectors: np.ndarray,

@@ -48,17 +48,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxWords = 8;
 
-// (value, position) order, values in IEEE total order (-0.0 before +0.0,
-// as lax.top_k and the plain version's stable sort order them)
-__device__ __forceinline__ int order_key(float v) {
-  const int i = __float_as_int(v);
-  return i ^ ((i >> 31) & 0x7fffffff);
-}
-
-__device__ __forceinline__ bool key_less(float av, int ap, float bv, int bp) {
-  const int ka = order_key(av), kb = order_key(bv);
-  return ka < kb || (ka == kb && ap < bp);
-}
+using scan::key_less;
 
 // The block's running top-k': pool_v/pool_p hold two sorted buffers of
 // kp keys each (double-buffered across merges), cand_v/cand_p one tile's
@@ -202,8 +192,7 @@ __global__ void __launch_bounds__(kThreads) fused_scan_partial(
         const float z = DT == scan::U8 ? zeros[gid] : 0.0f;
         const float ip = scan::row_sum<DT, false>(
             qs, scan::row_ptr(ax, DT, gid, D), D, vec, s, z);
-        d = L2 ? __fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, ip)), axn[gid])
-               : -ip;
+        d = L2 ? scan::l2_norms_form(qn, ip, axn[gid]) : -ip;
         has = true;
       }
     }

@@ -21,6 +21,29 @@ enum Dtype { F32 = 0, F16 = 1, U8 = 2 };
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
+// acc + a·b with the product and the sum each rounded (never one FMA)
+__device__ __forceinline__ float mac(float acc, float a, float b) {
+  return __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+// the norms form of the l2 distance, (‖q‖² − 2·ip) + ‖x‖², rounded as the
+// plain versions and the Pallas kernels evaluate it
+__device__ __forceinline__ float l2_norms_form(float qn, float ip, float xn) {
+  return __fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, ip)), xn);
+}
+
+// (value, position) order, values in IEEE total order (-0.0 before +0.0,
+// as lax.top_k and the plain versions' stable sorts order them)
+__device__ __forceinline__ int order_key(float v) {
+  const int i = __float_as_int(v);
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ bool key_less(float av, int ap, float bv, int bp) {
+  const int ka = order_key(av), kb = order_key(bv);
+  return ka < kb || (ka == kb && ap < bp);
+}
+
 // int8 dequant, rounded exactly as the eager upload-time value
 // zeros + scales * codes (one multiply, then one add).
 __device__ __forceinline__ float dequant(float code, float s, float z) {

@@ -4,7 +4,7 @@
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/<name>-<hash>.so`` under the repository root, at first use
 (:func:`load`) or ahead of it (:func:`build`, which starts one ``nvcc`` per
-source, all together).  The hash covers the source, the shared header and
+source, all together).  The hash covers the source, the shared headers and
 the flags, so an edited kernel never loads a stale library.  The C entry
 points take raw device pointers and the current stream, and return
 ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("fused_scan", "gather_distance")
+SOURCES = ("fused_scan", "gather_distance", "masked_distance",
+           "filtered_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,7 +47,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "scan_common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

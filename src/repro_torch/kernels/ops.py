@@ -1,17 +1,23 @@
-"""The segmented arena search of the main path (port of
-``repro/kernels/ops.py``: ``segmented_topk`` and ``masked_topk_tail``).
+"""The port's search operators (port of ``repro/kernels/ops.py``).
 
-One call per candidate-span tier of a batch: a chunked, label/tombstone
+``segmented_topk`` is the segmented arena search of the main path: one
+call per candidate-span tier of a batch, a chunked, label/tombstone
 filtered scan with a running top-k', an optional exact f32 rerank of a
-compressed-scan shortlist, and global ids resolved on the device.  Backends:
+compressed-scan shortlist, and global ids resolved on the device.
+``masked_distance`` and ``filtered_topk`` are the dense searches of the
+private-storage indexes (IVF's two distance passes, the private-copy
+``FlatIndex``).  Backends:
 
-  * ``"ref"`` — plain torch on any device, arithmetically the JAX
-    package's ``"ref"`` executor (norms-form l2, multiply + minor-axis
-    reduce, (value, position) ties);
+  * ``"ref"`` — plain torch on any device.  For the segmented search it
+    is arithmetically the JAX package's ``"ref"`` executor (norms-form
+    l2, multiply + minor-axis reduce, (value, position) ties); for the
+    dense searches it is the kernels' plain versions (the same norms
+    form, never a matmul, so batched ≡ looped holds);
   * ``"cuda"`` — the hand-written kernels: ``fused_scan`` for the fused
     scan stage, ``segmented_gather_distance`` for the unfused scan stage
     and the rerank stage (direct-form l2, as the JAX ``"pallas"``
-    backend).  On CPU tensors their wrappers run the plain versions.
+    backend), ``masked_distance`` and ``filtered_topk`` for the dense
+    searches.  On CPU tensors their wrappers run the plain versions.
 
 Every top-k is a stable sort (``ref.lex_topk``): ``torch.topk`` does not
 break ties by index.
@@ -25,7 +31,10 @@ import torch
 from ..index.base import resolve_device
 from ..launch import roofline
 from ..obs import metrics as _metrics
+from . import filtered_topk as _topk
+from . import masked_distance as _dist
 from . import ref
+from .filtered_topk import masked_topk_tail  # noqa: F401  (re-export)
 from .fused_scan import fused_segmented_scan, resolve_fused
 from .gather_distance import segmented_gather_distance
 
@@ -44,28 +53,65 @@ _M_DISPATCH = _metrics.counter(
 )
 
 
-def masked_topk_tail(d, tomb, n: int, *, k: int):
-    """Epilogue of a flat masked-distance top-k: the optional tombstone
-    AND over the row ids, the k > n inf-pad, the (distance, index) top-k
-    and the (+inf, n) empty-slot normalization."""
-    if tomb is not None:
-        alive = ref.tombstone_mask(
-            tomb, torch.arange(n, dtype=torch.int32, device=d.device))
-        d = torch.where(alive[None, :], d, torch.full_like(d, ref.INF))
-    if k > n:
-        d = torch.nn.functional.pad(d, (0, k - n), value=ref.INF)
-    vals, idxs = ref.lex_topk(d, k)
-    empty = torch.isinf(vals)
-    idxs = torch.where(empty, n, idxs)
-    vals = torch.where(empty, ref.INF, vals)
-    return vals, idxs.to(torch.int32)
-
-
 def _tensor(a, device, dtype=None):
     if a is None:
         return None
     t = torch.as_tensor(a, device=device)
     return t if dtype is None else t.to(dtype)
+
+
+def default_backend(device: torch.device) -> str:
+    """The kernel backend an entry point takes when the caller names
+    none: ``"cuda"`` on a CUDA device, ``"ref"`` elsewhere."""
+    return "cuda" if device.type == "cuda" else "ref"
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+
+
+def masked_distance(q, x, lq_words, lx_words, *, metric: str = "l2",
+                    backend: str | None = None, device="cuda"):
+    """[Q, D] x [N, D] (+ label words) -> [Q, N] f32 masked distances on
+    ``device``: the ``masked_distance`` kernel on ``"cuda"``, its plain
+    version on ``"ref"``.  Inputs may be numpy or tensors."""
+    dev = resolve_device(device)
+    backend = backend or default_backend(dev)
+    _check_backend(backend)
+    args = (_tensor(q, dev, torch.float32).contiguous(),
+            _tensor(x, dev, torch.float32).contiguous(),
+            _tensor(lq_words, dev, torch.int32).contiguous(),
+            _tensor(lx_words, dev, torch.int32).contiguous())
+    if backend == "ref":
+        return _dist.masked_distance_plain(*args, metric=metric)
+    return _dist.masked_distance(*args, metric=metric)
+
+
+def filtered_topk(q, x, lq_words, lx_words, *, k: int, metric: str = "l2",
+                  backend: str | None = None, tomb=None, device="cuda"):
+    """Dense filtered top-k: (vals [Q, k], idxs [Q, k] int32); idx == N
+    ⇒ empty slot.  ``tomb`` (optional packed bitmap [⌈N/8⌉] u8) drops
+    rows exactly like a failed label containment; with it the search is
+    ``masked_distance`` followed by :func:`masked_topk_tail`, as in the
+    JAX package, and without it the ``filtered_topk`` kernel (``"cuda"``)
+    or its plain version (``"ref"``)."""
+    dev = resolve_device(device)
+    backend = backend or default_backend(dev)
+    _check_backend(backend)
+    q = _tensor(q, dev, torch.float32).contiguous()
+    x = _tensor(x, dev, torch.float32).contiguous()
+    lq = _tensor(lq_words, dev, torch.int32).contiguous()
+    lx = _tensor(lx_words, dev, torch.int32).contiguous()
+    if tomb is not None:
+        d = masked_distance(q, x, lq, lx, metric=metric, backend=backend,
+                            device=dev)
+        return masked_topk_tail(d, _tensor(tomb, dev, torch.uint8),
+                                x.shape[0], k=k)
+    if backend == "ref":
+        return _topk.filtered_topk_plain(q, x, lq, lx, k=k, metric=metric)
+    return _topk.filtered_topk(q, x, lq, lx, k=k, metric=metric)
 
 
 def segmented_topk(q, lq, ax, alw, axn, rows_concat, starts, lens, *, k: int,
@@ -95,10 +141,8 @@ def segmented_topk(q, lq, ax, alw, axn, rows_concat, starts, lens, *, k: int,
     bitmap.  An explicit ``chunk`` always wins.
     """
     dev = resolve_device(device)
-    backend = backend or ("cuda" if dev.type == "cuda" else "ref")
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown kernel backend {backend!r}; "
-                         f"expected one of {BACKENDS}")
+    backend = backend or default_backend(dev)
+    _check_backend(backend)
     if metric not in ("l2", "ip"):
         raise ValueError(f"unknown metric {metric!r}")
     q = _tensor(q, dev, torch.float32).contiguous()

@@ -59,3 +59,50 @@ def test_kernels_and_engine_on_the_card(dev):
             launched = (fs.fused_segmented_scan.launches - before[0],
                         gd.segmented_gather_distance.launches - before[1])
             assert launched[0 if fused else 1] > 0
+
+
+def test_private_kernels_and_ivf_on_the_card(dev):
+    """The dense kernels against their plain versions (chip_smoke's phase-3
+    checks at a small size), then the ivf engine and the private-copy
+    FlatIndex on the card: batched ≡ looped, launches counted, and the
+    FlatIndex equal to its plain version up to boundary ties."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    import torch
+
+    assert chip_smoke.dense_kernel_checks(dev, N=4099, D=64)["cases"] > 0
+
+    from repro_torch.core import (LabelHybridEngine, LabelWorkloadConfig,
+                                  encode_many, generate_label_sets,
+                                  generate_query_label_sets,
+                                  masks_to_int32_words)
+    from repro_torch.index import FlatIndex
+    from repro_torch.kernels import filtered_topk as ft
+    from repro_torch.kernels import masked_distance as md
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((5000, 64)).astype(np.float32)
+    ls = generate_label_sets(5000, LabelWorkloadConfig(num_labels=10,
+                                                       seed=3))
+    qv = rng.standard_normal((120, 64)).astype(np.float32)
+    qls = generate_query_label_sets(ls, 120, seed=4, from_base_fraction=0.75)
+    eng = LabelHybridEngine.build(x, ls, backend="ivf", nprobe=4, device=dev)
+    before = md.masked_distance.launches
+    bd, bi = eng.search_batched(qv, qls, 7, min_bucket=8)
+    ld, li = eng.search_looped(qv, qls, 7)
+    np.testing.assert_array_equal(bi, li)
+    np.testing.assert_array_equal(bd, ld)
+    assert md.masked_distance.launches > before
+
+    lx = masks_to_int32_words(encode_many(ls))
+    qw = masks_to_int32_words(encode_many(qls))
+    before = ft.filtered_topk.launches
+    kd, ki = FlatIndex(x, lx, device=dev).search(qv, qw, 10)
+    pd, pi = FlatIndex(x, lx, kernel_backend="ref", device=dev).search(
+        qv, qw, 10)
+    assert ft.filtered_topk.launches > before
+    chip_smoke._compare(torch.from_numpy(kd), torch.from_numpy(ki),
+                        torch.from_numpy(pd), torch.from_numpy(pi),
+                        integer=False, int8=False, tag="FlatIndex on the card")
