@@ -15,7 +15,12 @@ Phases, one JSON line each on standard output:
      kernels (masked_distance, filtered_topk): l2 / ip, N not a multiple
      of the row tile, ragged Q, the empty query mask, an empty filter,
      k up to the pool's 32, k > N, a tombstone bitmap, and the same query
-     rows bitwise equal at buckets 1, 8 and 256.  Integer data
+     rows bitwise equal at buckets 1, 8 and 256.  The graph's per-hop
+     gather_distance: l2 / ip, ids < 0, D = 128 and 100, Q = 1 and
+     batches, buckets 1 / 8 / 256; and the card build of the graph against
+     the plain build (bitwise on tie-free integer rows, the compiled
+     reverse pass bitwise on its own; identical rows reported on random
+     data).  Integer data
      (``rint(randn·4)``, every f32 sum exact): positions, ids and values
      bitwise.  Random data, and int8 (its dequantized rows are not
      integers): values allclose at rtol 1e-5, positions equal up to
@@ -35,11 +40,18 @@ Phases, one JSON line each on standard output:
      not gated: IVF is approximate), warm QPS and p50/p99;
   4c. the private-copy FlatIndex over all 1,000,000 rows, the
      no-selection PostFiltering scan: recall@10 >= 0.999, search ==
-     search_padded sliced, warm QPS and p50/p99.
-     Every launch count is set to 0 just before each of 4, 4b and 4c and
-     read just after; each kernel of that path must have launched;
+     search_padded sliced, warm QPS and p50/p99;
+  4d. the ``graph`` backend (M 16, n_cand 64, α 1.2, ef 64, post) over
+     the data's first 100,000 rows (raised along 200k / 500k / 10^6 while
+     a build takes under 20 s and the phase fits its ~5 minutes) with its
+     own selection: build seconds by stage, batched == looped on 200
+     queries, ``"cuda"`` == ``"ref"`` up to ties, every result passing its
+     filter, every degree <= M; recall@10, QPS, p50/p99, hops and distance
+     computations reported.
+     Every launch count is set to 0 just before each of 4, 4b, 4c and 4d
+     and read just after; each kernel of that path must have launched;
   5. each kernel timed at its path's top-tier shapes beside its plain
-     version and its bound.
+     version and its bound (gather_distance at one hop: [256, 16] ids).
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and the contract line
@@ -377,6 +389,138 @@ def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
                           f"/ 256: bitwise")
 
 
+def graph_kernel_checks(dev, *, N=20011, seed=4):
+    """B5 (gather_distance) against its plain version: integer and random
+    data, l2 / ip, ids < 0 -> +inf, D = 128 (16-byte loads) and D = 100,
+    Q = 1 through ``ops.gather_distance`` (the JAX signature) and batches
+    whose pair count is not a multiple of the block; the same rows bitwise
+    at Q = 1, 8 and 256."""
+    import torch
+
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    err, cases, bitwise = 0.0, 0, True
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for integer in (True, False):
+        for D in (128, 100):
+            x = rng.standard_normal((N, D)).astype(np.float32)
+            if integer:
+                x = np.rint(x * 4).astype(np.float32)
+            x = t(x)
+            for metric in ("l2", "ip"):
+                for Q, B in ((1, 16), (37, 16), (5, 301)):
+                    q, _ = _queries(Q, D, 1, integer, rng, dev)
+                    ids = rng.integers(-2, N, (Q, B)).astype(np.int32)
+                    ids[0, 0] = -1
+                    ids = t(ids)
+                    kv = gd.gather_distance(q, x, ids, metric=metric)
+                    pv = gd.gather_distance_plain(q, x, ids, metric=metric)
+                    tag = f"gather_distance D={D} Q={Q} B={B} {metric} " \
+                          f"int={integer}"
+                    err = max(err, _compare(kv, None, pv, None,
+                                            integer=integer, int8=False,
+                                            tag=tag))
+                    bitwise &= bool(torch.equal(kv, pv))
+                    if not torch.isinf(kv[ids < 0]).all():
+                        raise AssertionError(f"{tag}: ids < 0 not +inf")
+                    one = ops.gather_distance(q[0], x, ids[0], metric=metric,
+                                              backend="cuda", device=dev)
+                    if not torch.equal(one, kv[0]):
+                        raise AssertionError(f"{tag}: Q = 1 row differs")
+                    cases += 1
+    x = t(rng.standard_normal((N, 128)).astype(np.float32))
+    q, _ = _queries(256, 128, 1, False, rng, dev)
+    ids = t(rng.integers(-1, N, (256, 16)).astype(np.int32))
+    for metric in ("l2", "ip"):
+        full = gd.gather_distance(q, x, ids, metric=metric)
+        for b in (1, 8):
+            if not torch.equal(gd.gather_distance(q[:b], x, ids[:b],
+                                                  metric=metric), full[:b]):
+                raise AssertionError(f"gather_distance bucket {b} != 256")
+        cases += 1
+    return dict(cases=cases, max_abs_err={"gather_distance": err},
+                random_bitwise=bitwise,
+                tolerance=f"integer data: bitwise; random data: rtol {RTOL} "
+                          f"atol {ATOL}; buckets 1 / 8 / 256: bitwise")
+
+
+def tie_free_points(n, D, n_cand, scale, seed):
+    """Integer rows (exact f32 distances) whose nearest ``n_cand + 1``
+    distances are distinct in every row: rows of a tied list are drawn
+    again until none is left."""
+    rng = np.random.default_rng(seed)
+    x = np.rint(rng.standard_normal((n, D)) * scale)
+    while True:
+        sq = np.sum(x * x, axis=1)
+        d = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)    # f64: exact
+        np.fill_diagonal(d, np.inf)
+        near = np.sort(np.partition(d, n_cand, axis=1)[:, :n_cand + 1], 1)
+        tied = np.flatnonzero((np.diff(near, axis=1) == 0).any(axis=1))
+        if tied.size == 0:
+            return x.astype(np.float32)
+        x[tied] = np.rint(rng.standard_normal((tied.size, D)) * scale)
+
+
+def _plain_build_stages(x, M, n_cand, alpha):
+    """The plain build, stage by stage: (adj, medoid, forward adj, forward
+    deg, reverse-pass adj, reverse-pass deg)."""
+    from repro_torch.index import graph as g
+    medoid = g.medoid_of(x)
+    fa, fd = g._forward_plain(x, g._pairwise_block_topk(x, n_cand), alpha, M)
+    adj, deg = fa.copy(), fd.copy()
+    g.reverse_edges_plain(x, adj, deg, alpha, M)
+    ra, rd = adj.copy(), deg.copy()
+    g.fix_orphans(adj, deg, medoid, M)
+    return adj, medoid, fa, fd, ra, rd
+
+
+def graph_build_checks(dev, *, n=4000, n_random=2000, D=128, M=16,
+                       n_cand=64, alpha=1.2, seed=5):
+    """The card build against the plain build: on integer rows whose
+    per-row candidate distances are distinct, adjacency and medoid
+    bitwise, and the compiled reverse pass, run on the plain forward
+    lists, bitwise the plain reverse pass; on random rows the share of
+    identical adjacency rows (reported: the card's candidate distances sum
+    in another order than numpy's matmul)."""
+    from repro_torch.index import graph as g
+
+    out = {}
+    x = tie_free_points(n, D, n_cand, 100.0, seed)
+    xr = np.random.default_rng(seed + 1).standard_normal(
+        (n_random, D)).astype(np.float32)
+    for name, data in (("integer", x), ("random", xr)):
+        t0 = time.perf_counter()
+        adj, medoid, fa, fd, ra, rd = _plain_build_stages(data, M, n_cand,
+                                                          alpha)
+        plain_s = time.perf_counter() - t0
+        ca, cd = fa.copy(), fd.copy()
+        t0 = time.perf_counter()
+        g.reverse_edges_compiled(data, ca, cd, alpha, M)
+        compiled_s = time.perf_counter() - t0
+        reverse_ok = bool(np.array_equal(ca, ra) and np.array_equal(cd, rd))
+        stages = {}
+        kadj, kmed = g.build_vamana(data, M, n_cand, alpha, device=dev,
+                                    timings=stages)
+        same = float(np.mean(np.all(kadj == adj, axis=1)))
+        out[name] = dict(rows=len(data), plain_seconds=plain_s,
+                         compiled_reverse_seconds=compiled_s,
+                         compiled_reverse_equals_plain=reverse_ok,
+                         card_stage_seconds=stages, medoid_equal=kmed == medoid,
+                         identical_rows=same,
+                         max_degree=int((kadj >= 0).sum(1).max()))
+        if name == "integer" and not (reverse_ok and same == 1.0
+                                      and kmed == medoid):
+            raise AssertionError(f"graph build on tie-free integer rows: "
+                                 f"{out[name]}")
+        if out[name]["max_degree"] > M:
+            raise AssertionError(f"graph build: degree above M ({name})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -668,6 +812,196 @@ def flat_scan_path(dev, *, data, ctx, counts, clock):
     return res, flat
 
 
+GRAPH = dict(M=16, n_cand=64, alpha=1.2, ef_search=64, strategy="post")
+GRAPH_ROWS = (100_000, 200_000, 500_000, 1_000_000)
+GRAPH_RAISE_BELOW_S = 20.0      # raise N only if the first build is faster
+GRAPH_PHASE_BUDGET_S = 300.0
+
+
+def _graph_engine(dev, data, n):
+    """The graph engine over the paper data's first ``n`` rows with its
+    own EIS selection at c = 0.2 for the phase-4 workload; returns the
+    engine and its selection and build seconds."""
+    from repro_torch.core import LabelHybridEngine
+
+    vectors, label_sets, _, qls = data
+    t0 = time.perf_counter()
+    eng = LabelHybridEngine.build(vectors[:n], label_sets[:n], mode="eis",
+                                  c=PAPER["elastic_bound"],
+                                  query_label_sets=qls, backend="graph",
+                                  device=dev, **GRAPH)
+    total = time.perf_counter() - t0
+    st = eng.stats()
+    return eng, dict(select_seconds=st.select_seconds,
+                     build_seconds=st.build_seconds, seconds=total)
+
+
+def _graph_cuda_vs_ref(eng, qv, qls, k, qsel):
+    """The graph engine's ``"cuda"`` results against the same graphs
+    searched with ``kernel_backend="ref"``; a query may differ only at a
+    boundary tie (the displaced values agree within the tolerance)."""
+    import torch
+
+    qs, ls = qv[qsel], [qls[i] for i in qsel]
+    got = eng.search_batched(qs, ls, k)
+    for ix in eng.indexes.values():
+        ix.kernel_backend = "ref"
+    try:
+        want = eng.search_batched(qs, ls, k)
+    finally:
+        for ix in eng.indexes.values():
+            ix.kernel_backend = "cuda"
+    gd, gi = (torch.from_numpy(a) for a in got)
+    wd, wi = (torch.from_numpy(a) for a in want)
+    rows = (gi != wi).any(dim=1).nonzero().flatten().tolist()
+    for r in rows:
+        diff = gi[r] != wi[r]
+        fin = torch.isfinite(wd[r])
+        if not (torch.equal(torch.isfinite(gd[r]), fin) and torch.allclose(
+                gd[r][diff & fin], wd[r][diff & fin], rtol=RTOL, atol=ATOL)):
+            raise AssertionError(f"graph cuda vs ref: query {qsel[r]} "
+                                 f"differs beyond ties")
+    return dict(queries=len(qsel), equal=len(qsel) - len(rows),
+                value_ties=len(rows))
+
+
+def _graph_walk_stats(eng, qv, qls, k):
+    """Mean hops and distance computations per query: each routed group
+    searched once through its index's ``search`` (which keeps them)."""
+    from repro_torch.core import encode_many, masks_to_int32_words
+
+    hops, dcs = [], []
+    by_key = {}
+    for qi, key in enumerate(eng.route_many(qls)):
+        by_key.setdefault(key, []).append(qi)
+    qw = masks_to_int32_words(encode_many(qls))
+    for key, qids in by_key.items():
+        ix = eng.indexes[key]
+        ix.search(qv[qids], qw[qids], k)
+        hops.append(ix.last_stats.hops)
+        dcs.append(ix.last_stats.dist_comps)
+    return (float(np.concatenate(hops).mean()),
+            float(np.concatenate(dcs).mean()))
+
+
+def graph_path(dev, *, data, counts, clock):
+    """Phase 4d: the engine on the ``graph`` backend (JAX defaults: M 16,
+    n_cand 64, α 1.2, ef 64, PostFiltering) over the paper data's first
+    100,000 rows, its own selection and the phase-4 workload; if that
+    build takes under 20 s, N is raised along ``GRAPH_ROWS`` while the
+    phase is predicted to stay within its budget.  Gates: batched ≡ looped on 200
+    queries, ``"cuda"`` ≡ ``"ref"`` up to boundary ties on the first 64
+    queries and 32 of the top index's, every returned id passes its
+    query's filter, every degree ≤ M.  Hops and distance computations
+    are the means over the first 200 queries.  Returns its results and
+    engine."""
+    import torch
+
+    from repro_torch.core import (EMPTY_KEY, encode_many,
+                                  masks_to_int32_words, recall_at_k)
+
+    vectors, label_sets, qv, qls = data
+    k = PAPER["k"]
+    t_phase = time.perf_counter()
+    tried = []
+    n = GRAPH_ROWS[0]
+    eng, built = _graph_engine(dev, data, n)
+    tried.append(dict(rows=n, **built))
+    stop = None
+    if built["build_seconds"] >= GRAPH_RAISE_BELOW_S:
+        stop = (f"the {n}-row build took {built['build_seconds']:.1f} s "
+                f"(raise only below {GRAPH_RAISE_BELOW_S:.0f} s)")
+    for nxt in GRAPH_ROWS[1:] if stop is None else ():
+        # selection and build grow a little faster than the rows; the
+        # searches below took ~100 s at 200k rows on an H100 host
+        predicted = (time.perf_counter() - t_phase
+                     + built["seconds"] * nxt / n * 1.5 + 150.0)
+        if predicted > GRAPH_PHASE_BUDGET_S:
+            stop = (f"{nxt} rows would take the phase to ~{predicted:.0f} s "
+                    f"(budget {GRAPH_PHASE_BUDGET_S:.0f} s; the {n}-row "
+                    f"selection and build took {built['seconds']:.1f} s)")
+            break
+        del eng
+        torch.cuda.empty_cache()
+        n = nxt
+        eng, built = _graph_engine(dev, data, n)
+        tried.append(dict(rows=n, **built))
+    stages: dict[str, float] = {}
+    for ix in eng.indexes.values():
+        for name, sec in ix.build_seconds.items():
+            stages[name] = stages.get(name, 0.0) + sec
+    st = eng.stats()
+    rows_total = sum(ix.num_vectors for ix in eng.indexes.values())
+    degree_ok = all(bool(((ix.adjacency >= 0).sum(1) <= ix.M).all())
+                    and int(ix.adjacency.max()) < ix.num_vectors
+                    for ix in eng.indexes.values())
+
+    lx_dev = torch.from_numpy(masks_to_int32_words(
+        encode_many(label_sets[:n]))).to(dev)
+    truth = exact_topk(torch.from_numpy(vectors[:n]).to(dev), lx_dev, qv,
+                       qls, k, dev)
+    before = dict(counts())
+    t0 = time.perf_counter()
+    _, ids = eng.search_batched(qv, qls, k)
+    first_s = time.perf_counter() - t0
+    per_batch = {name: counts()[name] - before[name] for name in before}
+    recall = recall_at_k(ids, truth, n)
+    lq = masks_to_int32_words(encode_many(qls)).astype(np.int64)
+    lxh = masks_to_int32_words(encode_many(label_sets[:n])).astype(np.int64)
+    live = ids < n
+    got = lxh[np.where(live, ids, 0)]
+    filters_ok = bool(np.all(((got & lq[:, None, :]) == lq[:, None, :])
+                             .all(-1) | ~live))
+    bd, bi = eng.search_batched(qv[:200], qls[:200], k)
+    ld, li = eng.search_looped(qv[:200], qls[:200], k)
+    looped_ok = bool(np.array_equal(bi, li) and np.array_equal(bd, ld)
+                     and np.array_equal(bi, ids[:200]))
+    routed = eng.route_many(qls)
+    top = [i for i, key in enumerate(routed) if key == EMPTY_KEY]
+    qsel = sorted(set(range(64)) | set(top[:32]))
+    vs_ref = _graph_cuda_vs_ref(eng, qv, qls, k, qsel)
+    hops, dcomps = _graph_walk_stats(eng, qv[:200], qls[:200], k)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.search_batched(qv, qls, k)
+        times.append(time.perf_counter() - t0)
+    lat = []
+    for i in range(0, len(qls), 32):
+        t0 = time.perf_counter()
+        eng.search_batched(qv[i:i + 32], qls[i:i + 32], k)
+        lat.append(time.perf_counter() - t0)
+    res = dict(backend="graph", **GRAPH, rows=n, paper_rows=PAPER["n_vectors"],
+               builds=tried,
+               reduced=(f"N = {n} of the paper's {PAPER['n_vectors']}: "
+                        f"{stop}" if stop else None),
+               indexes=len(eng.indexes), graph_rows=rows_total,
+               build_stage_seconds=stages, select_seconds=st.select_seconds,
+               build_seconds=st.build_seconds, graph_bytes=st.nbytes,
+               adjacency_bytes=sum(ix.adjacency.nbytes
+                                   for ix in eng.indexes.values()),
+               top_index_rows=int(eng.indexes[EMPTY_KEY].num_vectors),
+               queries_at_top_index=len(top), routed_groups=len(set(routed)),
+               first_batch_seconds=first_s, recall_at_10=recall,
+               launches_per_1000_query_batch=per_batch,
+               batched_equals_looped=looped_ok, cuda_vs_ref=vs_ref,
+               filters_pass=filters_ok, degree_at_most_M=degree_ok,
+               mean_hops=hops, mean_dist_comps=dcomps,
+               warm_qps=len(qls) / float(np.median(times)),
+               batch_seconds=times,
+               p50_ms_32=float(np.percentile(lat, 50)) * 1e3,
+               p99_ms_32=float(np.percentile(lat, 99)) * 1e3,
+               phase_seconds=time.perf_counter() - t_phase)
+    emit("engine", **res)
+    if not looped_ok:
+        raise AssertionError("graph: batched != looped")
+    if not filters_ok:
+        raise AssertionError("graph: a returned id fails its filter")
+    if not degree_ok:
+        raise AssertionError("graph: a degree above M or an id out of range")
+    return res, eng
+
+
 # ---------------------------------------------------------------------------
 # phase 5: kernel times at the main path's shapes, beside their bounds
 # ---------------------------------------------------------------------------
@@ -892,6 +1226,49 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
     return out
 
 
+def time_graph_kernel(graph_eng, ctx, clock, launches, errs, seed=6):
+    """gather_distance at one hop's shape: the ids [256, 16] of the
+    neighbour lists of 256 nodes of the top graph index (the workload's
+    top-index queries on their bucket), beside its plain version and its
+    bound."""
+    import torch
+
+    from repro_torch.core import EMPTY_KEY
+    from repro_torch.kernels import gather_distance as gd
+
+    qv, qls = ctx["qv"], ctx["qls"]
+    ix = graph_eng.indexes[EMPTY_KEY]
+    dev = ix.device
+    top = [i for i, key in enumerate(graph_eng.route_many(qls))
+           if key == EMPTY_KEY]
+    b = 1 << max(len(top) - 1, 0).bit_length()
+    qp = torch.zeros((b, qv.shape[1]), dtype=torch.float32, device=dev)
+    qp[:len(top)] = torch.from_numpy(qv[top]).to(dev)
+    nodes = np.random.default_rng(seed).integers(0, ix.num_vectors, b)
+    ids = torch.from_numpy(ix.adjacency[nodes]).to(dev)
+    kv = gd.gather_distance(qp, ix._xb, ids)
+    pv = gd.gather_distance_plain(qp, ix._xb, ids)
+    err = _compare(kv, None, pv, None, integer=False, int8=False,
+                   tag="gather_distance at the hop's shape")
+    ms = clock.ms(lambda: gd.gather_distance(qp, ix._xb, ids))
+    plain_ms = clock.ms(lambda: gd.gather_distance_plain(qp, ix._xb, ids),
+                        max_reps=10)
+    Q, D = qp.shape
+    pairs = int((ids >= 0).sum())
+    nbytes = 4 * (pairs * D + ids.numel() + Q * D + kv.numel())
+    bound_ms, bound_by = _bound(nbytes, pairs * 3 * D)
+    return [dict(
+        name="gather_distance", route="cuda",
+        source="src/repro_torch/csrc/gather_distance.cu",
+        replaces="src/repro/kernels/gather_distance.py:163",
+        launches=launches["gather_distance"],
+        max_abs_err=max(err, errs["gather_distance"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None,
+        shape=dict(queries=len(top), q_bucket=Q, ids_per_query=ids.shape[1],
+                   dim=D, index_rows=ix.num_vectors, pairs=pairs))]
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -952,12 +1329,21 @@ def main() -> int:
     checks["cases"] += dense["cases"]
     checks["max_abs_err"].update(dense["max_abs_err"])
     checks["dense_tolerance"] = dense["tolerance"]
+    hop = graph_kernel_checks(dev)
+    checks["cases"] += hop["cases"]
+    checks["max_abs_err"].update(hop["max_abs_err"])
+    checks["gather_distance_tolerance"] = hop["tolerance"]
+    checks["gather_distance_random_bitwise"] = hop["random_bitwise"]
     emit("kernels_vs_plain", seconds=time.perf_counter() - t0, **checks)
+    t0 = time.perf_counter()
+    emit("graph_build_vs_plain", **graph_build_checks(dev),
+         seconds=time.perf_counter() - t0)
 
     wrappers = {"fused_scan": fs.fused_segmented_scan,
                 "segmented_gather_distance": gd.segmented_gather_distance,
                 "masked_distance": md.masked_distance,
-                "filtered_topk": ft.filtered_topk}
+                "filtered_topk": ft.filtered_topk,
+                "gather_distance": gd.gather_distance}
 
     def counts():
         return {name: fn.launches for name, fn in wrappers.items()}
@@ -987,15 +1373,21 @@ def main() -> int:
         "flat_scan_path", ("filtered_topk",),
         lambda: flat_scan_path(dev, data=data, ctx=ctx, counts=counts,
                                clock=clock))
+    (_, graph_eng), at_graph = drive(
+        "graph_path", ("gather_distance", "masked_distance"),
+        lambda: graph_path(dev, data=data, counts=counts, clock=clock))
     launches = dict(at_flat)
     for name in ("masked_distance", "filtered_topk"):
         launches[name] = at_ivf[name] + at_scan[name]
+    launches["gather_distance"] = at_graph["gather_distance"]
 
     t0 = time.perf_counter()
     kernels = time_kernels(engines, (ctx["qv"], ctx["qls"]), clock, launches,
                            checks["max_abs_err"])
     kernels += time_dense_kernels(ivf_eng, flat, ctx, clock, launches,
                                   checks["max_abs_err"])
+    kernels += time_graph_kernel(graph_eng, ctx, clock, launches,
+                                 checks["max_abs_err"])
     emit("kernel_times", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(smi, flush=True)

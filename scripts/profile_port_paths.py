@@ -6,7 +6,9 @@
 Builds ``chip_smoke.py``'s paper-scale workload (1,000,000 × 128 vectors,
 1,000 queries, one EIS selection at c = 0.2), then three searchers over
 it: the f32 flat engine with the fused scan (the main path), the engine on
-the ``ivf`` backend and the private-copy ``FlatIndex`` over every row.
+the ``ivf`` backend and the private-copy ``FlatIndex`` over every row;
+then the engine on the ``graph`` backend over the first 100,000 rows with
+its own selection (``chip_smoke.py``'s phase 4d at its smallest N).
 Each is warmed with two 1,000-query batches, then one batch is traced
 with ``torch.profiler`` (CPU and CUDA activities).  One JSON line per
 searcher: the batch's wall time, the device time the trace saw (the sum
@@ -88,6 +90,10 @@ def main() -> int:
                      device=dev)
     searchers["FlatIndex, all rows"] = lambda: flat.search(
         qv, masks_to_int32_words(encode_many(qls)), k)
+    graph_eng, _ = chip_smoke._graph_engine(
+        dev, (vectors, label_sets, qv, qls), chip_smoke.GRAPH_ROWS[0])
+    searchers["graph engine, 100k rows"] = \
+        lambda: graph_eng.search_batched(qv, qls, k)
     for name, search in searchers.items():
         print(json.dumps({"searcher": name, "queries": len(qls),
                           **profile(search, dev)}, default=float),

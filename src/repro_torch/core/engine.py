@@ -9,12 +9,12 @@ Pipeline (paper §3-§5):
      S(L): on the arena-native ``flat`` backend a zero-copy view of the
      shared device :class:`Arena` through an int32 CSR segment table
      (``rows_concat`` + per-key offsets); on a private-storage backend
-     (``ivf``) an index over its own copy of the rows,
+     (``ivf``, ``graph``) an index over its own copy of the rows,
   4. route each query to its assigned index (max elastic factor) and run a
      filtered top-k inside it; ids come back global.
 
-The ``graph`` and ``distributed`` backends are not ported yet (ROADMAP
-queue A10) and raise ``NotImplementedError``.  Every device tensor lives
+The ``distributed`` backend is not ported yet (ROADMAP queue A10) and
+raises ``NotImplementedError``.  Every device tensor lives
 on the engine's ``device`` (``"cuda"`` by default; without a card that
 raises unless the caller passes ``device="cpu"``).
 """
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..index import flat as _flat  # noqa: F401  (registers "flat")
+from ..index import graph as _graph  # noqa: F401  (registers "graph")
 from ..index import ivf as _ivf  # noqa: F401  (registers "ivf")
 from ..index.base import (Arena, as_row_ids, check_global_id_contract,
                           dispatch_padded, get_index_builder, parse_storage,
@@ -45,7 +46,7 @@ from .labels import (encode_label_set, encode_many, key_contains,
                      key_to_mask, mask_key, masks_to_int32_words)
 from .sis import SISResult, sis
 
-UNPORTED_BACKENDS = ("graph", "distributed")
+UNPORTED_BACKENDS = ("distributed",)
 
 # Search-path telemetry (DESIGN.md §6.3): host-side bookkeeping gated on
 # the obs enabled flags; search bits are untouched either way.
@@ -225,8 +226,8 @@ class LabelHybridEngine:
         if backend in UNPORTED_BACKENDS:
             raise NotImplementedError(
                 f"backend {backend!r} is not ported yet; the port runs the "
-                f"flat and ivf backends (ROADMAP queue A10: graph, then "
-                f"distributed)")
+                f"flat, ivf and graph backends (ROADMAP queue A10: "
+                f"distributed, single-GPU first)")
         self.device = resolve_device(device)
         self.sis_result = sis_result
         self.backend = backend
@@ -300,9 +301,7 @@ class LabelHybridEngine:
         for key in selection.selected:
             rows = old_rows.get(key)
             if rows is None:
-                rows = (np.arange(n, dtype=np.int64) if key == EMPTY_KEY
-                        else self.table.closure_members(key))
-                rows = as_row_ids(rows, n)   # int32 + sentinel contract
+                rows = _key_rows(self.table, key, n)
             self.rows[key] = rows
             self.segments[key] = (off, rows.size)
             parts.append(rows)
@@ -397,7 +396,11 @@ class LabelHybridEngine:
         ``"pallas"`` kernel backend maps to ``"cuda"``.  With
         ``backend="ivf"``, ``ivf_states`` maps every selected key to its
         JAX index's clusters (``IVFIndex.from_reference_state``), which
-        the engine installs instead of running k-means."""
+        the engine installs instead of running k-means; with
+        ``backend="graph"``, ``graph_states`` maps every selected key to its
+        JAX index's ``adjacency`` and ``medoid`` (``M``, ``ef_search`` and
+        ``strategy`` optional), installed over the key's rows instead of a
+        Vamana build."""
         label_sets = list(state["label_sets"])
         table = GroupTable.build_groups_only(label_sets)
         table.closure_sizes = dict(state["closure_sizes"])
@@ -411,12 +414,22 @@ class LabelHybridEngine:
         backend = state.get("backend", "flat")
         metric = state.get("metric", "l2")
         indexes = None
+        dev = resolve_device(device)
+        kb = params.get("kernel_backend")
         if backend == "ivf":
-            dev = resolve_device(device)
-            kb = params.get("kernel_backend")
             indexes = {key: _ivf.IVFIndex.from_reference_state(
                 st, metric=metric, kernel_backend=kb, device=dev)
                 for key, st in state["ivf_states"].items()}
+        elif backend == "graph":
+            vectors = np.ascontiguousarray(state["vectors"], np.float32)
+            words = masks_to_int32_words(encode_many(label_sets))
+            n = len(label_sets)
+            indexes = {}
+            for key, st in state["graph_states"].items():
+                rows = _key_rows(table, key, n)
+                indexes[key] = _graph.GraphIndex.from_reference_state(
+                    vectors[rows], words[rows], st, metric=metric,
+                    kernel_backend=kb, device=dev)
         return cls(state["vectors"], label_sets, table, selection, None,
                    backend, metric, params, 0.0,
                    storage=state.get("storage", "f32"), device=device,
@@ -505,7 +518,7 @@ class LabelHybridEngine:
             power-of-two candidate span of each query's segment and run ONE
             ``ops.segmented_topk`` per span tier — O(#tiers) launches per
             batch, not one per routed index;
-          * private-storage backends (ivf): one ``search_padded`` per
+          * private-storage backends (ivf, graph): one ``search_padded`` per
             routed index on the group's power-of-two bucket, with the
             local → global id map applied on the host.
 
@@ -727,6 +740,14 @@ class LabelHybridEngine:
         )
         publish_engine_gauges(st)
         return st
+
+
+def _key_rows(table: GroupTable, key: tuple[int, ...], n: int) -> np.ndarray:
+    """The rows a selected key's index holds, S(key), as int32 row ids
+    (the sentinel contract); the empty key holds every row."""
+    rows = (np.arange(n, dtype=np.int64) if key == EMPTY_KEY
+            else table.closure_members(key))
+    return as_row_ids(rows, n)
 
 
 def _local_to_global(li: np.ndarray, rows: np.ndarray, n: int) -> np.ndarray:

@@ -20,6 +20,21 @@
 // all for pairs that fail the length or label test.  Rows are scattered,
 // so a warp's loads are not coalesced across threads; each thread's own
 // row is read in full 32-byte sectors.
+//
+// Also replaces src/repro/kernels/gather_distance.py::gather_distance_pallas
+// (one grid step per scattered candidate row, its id scalar-prefetched):
+//
+// out[q, b] = dist(q, x[ids[q, b]])  if ids[q, b] >= 0
+//           = +inf                   otherwise
+//
+// the graph backend's per-hop neighbour distances, a batch of queries
+// with an id list each ([Q, B]; the TPU kernel is the Q = 1 case), in the
+// same DIRECT form.  Bound on the card: each live pair reads one scattered
+// row (4·D bytes) for 3·D flops, so bytes.  Design: one thread per (query,
+// id) pair over a flat grid (B is the graph degree, 16, so a block spans
+// many queries); the query row is read through the L1 cache, the
+// candidate row with 16-byte loads, and a pair with a negative id reads
+// nothing.
 #include <cuda_runtime.h>
 
 #include "scan_common.cuh"
@@ -67,7 +82,38 @@ void launch(dim3 grid, size_t smem, cudaStream_t st, const float* q,
       q, lq, x, lxw, gids, lens, scales, zeros, out, L, D, W, vec);
 }
 
+__global__ void __launch_bounds__(kThreads) gather_kernel(
+    const float* __restrict__ q, const float* __restrict__ x,
+    const int* __restrict__ ids, float* __restrict__ out, long long pairs,
+    int B, int D, bool vec, bool ip) {
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (p >= pairs) return;
+  const int id = ids[p];
+  float d = scan::inf();
+  if (id >= 0) {
+    const float* qr = q + (p / B) * static_cast<long long>(D);
+    const void* row = scan::row_ptr(x, scan::F32, id, D);
+    d = ip ? -scan::row_sum<scan::F32, false>(qr, row, D, vec, 0.0f, 0.0f)
+           : scan::row_sum<scan::F32, true>(qr, row, D, vec, 0.0f, 0.0f);
+  }
+  out[p] = d;
+}
+
 }  // namespace
+
+// q [Q, D] f32, x [N, D] f32, ids [Q, B] i32 (< 0: padding) -> out [Q, B]
+// f32.  Returns cudaGetLastError().
+extern "C" int gather_distance(const float* q, const float* x, const int* ids,
+                               float* out, int Q, int B, int D, int metric_ip,
+                               int vec, void* stream) {
+  const long long pairs = static_cast<long long>(Q) * B;
+  const unsigned blocks =
+      static_cast<unsigned>((pairs + kThreads - 1) / kThreads);
+  gather_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      q, x, ids, out, pairs, B, D, vec != 0, metric_ip != 0);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // q [Q, D] f32, lq [Q, W] i32, x [N, D] (dtype 0 f32 / 1 f16 / 2 u8),
 // lxw [N, W] i32, gids [Q, L] i32, lens [Q] i32, scales/zeros [N] f32

@@ -1,4 +1,5 @@
-"""The port's kernels: plain torch oracles (``ref``), the four hand-written
-CUDA kernels with their plain versions (``fused_scan``,
-``gather_distance``, ``masked_distance``, ``filtered_topk``) and the
+"""The port's kernels: plain torch oracles (``ref``), the hand-written CUDA
+kernels with their plain versions (``fused_scan``, ``gather_distance``
+(the segmented arena gather and the graph's per-hop gather),
+``masked_distance``, ``filtered_topk``) and the
 searches built on them (``ops``)."""

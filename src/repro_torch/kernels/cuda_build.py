@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels: ``nvcc`` -> shared library ->
 ``ctypes``.
 
-Each ``csrc/<name>.cu`` compiles on its own into
+Each ``csrc/<name>.cu`` compiles on its own (``vamana_host.cu`` holds
+host code only; the host compiler never fuses a product into a sum,
+``-ffp-contract=off``) into
 ``build/<name>-<hash>.so`` under the repository root, at first use
 (:func:`load`) or ahead of it (:func:`build`, which starts one ``nvcc`` per
 source, all together).  The hash covers the source, the shared headers and
@@ -25,9 +27,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("fused_scan", "gather_distance", "masked_distance",
-           "filtered_topk")
+           "filtered_topk", "vamana_host")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC,-ffp-contract=off",
+              "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

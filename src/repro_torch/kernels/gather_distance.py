@@ -1,4 +1,5 @@
-"""Segmented gather + fused filtered distance (DESIGN.md §3).
+"""Gathered distances: the segmented arena gather (DESIGN.md §3) and the
+graph backend's per-hop neighbour distances.
 
 The port of ``repro/kernels/gather_distance.py::
 segmented_gather_distance_pallas``: [Q, L] masked distances of each query
@@ -14,6 +15,13 @@ the TPU kernel's DIRECT form ``sum((q - x)²)`` for l2 — not the norms form
 of the scan oracle — so the port's ``"cuda"`` backend matches the JAX
 package's ``"pallas"`` backend; the two forms differ in value, not in
 position (DESIGN.md §3.9).
+
+:func:`gather_distance` is the port of ``gather_distance_pallas``: the
+distances of each query to its own list of scattered rows, ids < 0 ->
++inf, in the same direct form.  The graph's beam search calls it once per
+hop with the [bucket, M] neighbour ids of the nodes it expands.  Its
+wrapper follows the same rule: :func:`gather_distance_plain` on a CPU
+tensor, the kernel in ``csrc/gather_distance.cu`` on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from . import cuda_build, ref
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.uint8: 2}
 _STORAGE = {torch.float32: "f32", torch.float16: "fp16", torch.uint8: "int8"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"seg_gather_distance": [_P] * 9 + [_I] * 7 + [_P]}
+_SIGNATURES = {"seg_gather_distance": [_P] * 9 + [_I] * 7 + [_P],
+               "gather_distance": [_P] * 4 + [_I] * 5 + [_P]}
 MAX_LABEL_WORDS = 8
 MAX_DIM = 12_288          # the query row is staged in 48 KB of shared memory
 
@@ -103,3 +112,57 @@ def segmented_gather_distance(q, lq, x, lxw, gids, lens, *,
 
 
 segmented_gather_distance.launches = 0
+
+
+def gather_distance_plain(q, x, ids, *, metric: str = "l2"):
+    """Plain torch version on any device: ``q`` [Q, D], ``x`` [N, D],
+    ``ids`` [Q, B] -> [Q, B] direct-form distances, ids < 0 -> +inf.
+    Each sum runs in order over D, one rounded multiply and one rounded
+    add per feature, as the kernel sums: the two agree bitwise on any data,
+    so a graph walk on ``"ref"`` takes the kernel's path."""
+    rows = x[torch.clamp(ids, 0, max(x.shape[0] - 1, 0)).long()]
+    d = torch.zeros(ids.shape, dtype=torch.float32, device=q.device)
+    for e in range(q.shape[1]):
+        qe = q[:, None, e]
+        if metric == "ip":
+            d = d + rows[..., e] * qe
+        else:
+            t = qe - rows[..., e]
+            d = d + t * t
+    if metric == "ip":
+        d = -d
+    return torch.where(ids >= 0, d, torch.full_like(d, ref.INF))
+
+
+def gather_distance(q, x, ids, *, metric: str = "l2"):
+    """``q`` [Q, D] f32, ``x`` [N, D] f32, ``ids`` [Q, B] i32 (< N; < 0 is
+    padding) -> [Q, B] f32 distances of each query to its own rows."""
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if q.device.type == "cpu":
+        return gather_distance_plain(q, x, ids, metric=metric)
+    for name, t, dt in (("q", q, torch.float32), ("x", x, torch.float32),
+                        ("ids", ids, torch.int32)):
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous() \
+                or t.dim() != 2:
+            raise ValueError(f"gather_distance: {name} must be a contiguous "
+                             f"2-d {dt} tensor on {q.device}")
+    Q, D = q.shape
+    B = ids.shape[1]
+    if x.shape[1] != D or ids.shape[0] != Q:
+        raise ValueError("gather_distance: shape mismatch")
+    out = torch.empty((Q, B), dtype=torch.float32, device=q.device)
+    if Q == 0 or B == 0:
+        return out
+    lib = cuda_build.load("gather_distance", _SIGNATURES)
+    vec = D % 16 == 0 and x.data_ptr() % 16 == 0
+    p = cuda_build.ptr
+    code = lib.gather_distance(
+        p(q), p(x), p(ids), p(out), Q, B, D, int(metric == "ip"), int(vec),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    gather_distance.launches += 1
+    cuda_build.check(code, "gather_distance")
+    return out
+
+
+gather_distance.launches = 0

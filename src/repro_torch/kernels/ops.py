@@ -6,7 +6,8 @@ filtered scan with a running top-k', an optional exact f32 rerank of a
 compressed-scan shortlist, and global ids resolved on the device.
 ``masked_distance`` and ``filtered_topk`` are the dense searches of the
 private-storage indexes (IVF's two distance passes, the private-copy
-``FlatIndex``).  Backends:
+``FlatIndex``); ``gather_distance`` is the graph's per-hop neighbour
+distance.  Backends:
 
   * ``"ref"`` — plain torch on any device.  For the segmented search it
     is arithmetically the JAX package's ``"ref"`` executor (norms-form
@@ -17,7 +18,7 @@ private-storage indexes (IVF's two distance passes, the private-copy
     scan stage, ``segmented_gather_distance`` for the unfused scan stage
     and the rerank stage (direct-form l2, as the JAX ``"pallas"``
     backend), ``masked_distance`` and ``filtered_topk`` for the dense
-    searches.  On CPU tensors their wrappers run the plain versions.
+    searches, ``gather_distance`` for the graph's hops.  On CPU tensors their wrappers run the plain versions.
 
 Every top-k is a stable sort (``ref.lex_topk``): ``torch.topk`` does not
 break ties by index.
@@ -36,6 +37,7 @@ from . import masked_distance as _dist
 from . import ref
 from .filtered_topk import masked_topk_tail  # noqa: F401  (re-export)
 from .fused_scan import fused_segmented_scan, resolve_fused
+from . import gather_distance as _gather
 from .gather_distance import segmented_gather_distance
 
 # Unfused executor chunk: the JAX package's span chunk on the ``"ref"``
@@ -87,6 +89,33 @@ def masked_distance(q, x, lq_words, lx_words, *, metric: str = "l2",
     if backend == "ref":
         return _dist.masked_distance_plain(*args, metric=metric)
     return _dist.masked_distance(*args, metric=metric)
+
+
+def gather_distance(q_row, x, ids, *, metric: str = "l2",
+                    backend: str | None = None, device="cuda"):
+    """[D], [N, D], [B] -> [B] f32 direct-form distances of one query to
+    ``x[ids]``; ids < 0 -> +inf (padding).  The JAX signature; the graph
+    search calls :func:`gather_distance_batched`."""
+    return gather_distance_batched(
+        _tensor(q_row, resolve_device(device))[None, :], x,
+        _tensor(ids, resolve_device(device))[None, :], metric=metric,
+        backend=backend, device=device)[0]
+
+
+def gather_distance_batched(q, x, ids, *, metric: str = "l2",
+                            backend: str | None = None, device="cuda"):
+    """[Q, D], [N, D], [Q, B] -> [Q, B] f32: each query against its own id
+    list, through the ``gather_distance`` kernel on ``"cuda"`` and its
+    plain version on ``"ref"``.  A row's values do not depend on Q or B."""
+    dev = resolve_device(device)
+    backend = backend or default_backend(dev)
+    _check_backend(backend)
+    args = (_tensor(q, dev, torch.float32).contiguous(),
+            _tensor(x, dev, torch.float32).contiguous(),
+            _tensor(ids, dev, torch.int32).contiguous())
+    if backend == "ref":
+        return _gather.gather_distance_plain(*args, metric=metric)
+    return _gather.gather_distance(*args, metric=metric)
 
 
 def filtered_topk(q, x, lq_words, lx_words, *, k: int, metric: str = "l2",

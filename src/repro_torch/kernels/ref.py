@@ -63,6 +63,15 @@ def masked_distance(q, x, lq_words, lx_words, metric: str = "l2"):
     return torch.where(keep, d, torch.full_like(d, INF))
 
 
+def gather_distance(q_row, x, ids, metric: str = "l2") -> torch.Tensor:
+    """Graph-search hot loop oracle: distances from one query ``q_row`` [D]
+    to ``x[ids]`` ([B] ids); ids < 0 (padding) -> +inf."""
+    valid = ids >= 0
+    rows = x[torch.clamp(ids, 0, x.shape[0] - 1).long()]
+    d = distances(q_row[None, :], rows, metric)[0]
+    return torch.where(valid, d, torch.full_like(d, INF))
+
+
 def tombstone_mask(tomb: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     """Gathered per-row liveness from a packed tombstone bitmap
     (``tomb`` [⌈N/8⌉] u8, bit set ⇒ row deleted, little bit order).

@@ -106,3 +106,43 @@ def test_private_kernels_and_ivf_on_the_card(dev):
     chip_smoke._compare(torch.from_numpy(kd), torch.from_numpy(ki),
                         torch.from_numpy(pd), torch.from_numpy(pi),
                         integer=False, int8=False, tag="FlatIndex on the card")
+
+
+def test_graph_kernel_and_build_on_the_card(dev):
+    """B5 and the compiled reverse pass against their plain versions
+    (chip_smoke's phase-3 checks at a small size), then the graph engine
+    on the card: batched ≡ looped, ``gather_distance`` launched, and the
+    ``"cuda"`` walks equal to the ``"ref"`` walks."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    assert chip_smoke.graph_kernel_checks(dev, N=4099)["cases"] > 0
+    built = chip_smoke.graph_build_checks(dev, n=600, n_random=400, D=64,
+                                          M=8, n_cand=16)
+    assert built["integer"]["identical_rows"] == 1.0
+    assert built["random"]["compiled_reverse_equals_plain"]
+
+    from repro_torch.core import (LabelHybridEngine, LabelWorkloadConfig,
+                                  generate_label_sets,
+                                  generate_query_label_sets)
+    from repro_torch.kernels import gather_distance as gd
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3000, 64)).astype(np.float32)
+    ls = generate_label_sets(3000, LabelWorkloadConfig(num_labels=10,
+                                                       seed=3))
+    qv = rng.standard_normal((120, 64)).astype(np.float32)
+    qls = generate_query_label_sets(ls, 120, seed=4, from_base_fraction=0.75)
+    eng = LabelHybridEngine.build(x, ls, backend="graph", M=8, n_cand=16,
+                                  ef_search=32, device=dev)
+    before = gd.gather_distance.launches
+    bd, bi = eng.search_batched(qv, qls, 7, min_bucket=8)
+    ld, li = eng.search_looped(qv, qls, 7)
+    np.testing.assert_array_equal(bi, li)
+    np.testing.assert_array_equal(bd, ld)
+    assert gd.gather_distance.launches > before
+    out = chip_smoke._graph_cuda_vs_ref(eng, qv, [tuple(s) for s in qls], 7,
+                                        list(range(120)))
+    assert out["equal"] + out["value_ties"] == 120

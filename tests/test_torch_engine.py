@@ -173,7 +173,7 @@ def test_warmup_and_telemetry_leave_results_alone(engines, data):
 def test_device_and_backend_rules(data, monkeypatch):
     x, ls = data["x"][:300], data["ls"][:300]
     with pytest.raises(NotImplementedError, match="A10"):
-        PortEngine.build(x, ls, backend="graph", device="cpu")
+        PortEngine.build(x, ls, backend="distributed", device="cpu")
     eng = PortEngine.build(x, ls, device="cpu", storage="int8+rerank")
     assert eng._seg_backend == "ref" and eng._seg_fused is False
     assert eng.arena.device.type == "cpu"

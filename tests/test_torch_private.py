@@ -330,15 +330,14 @@ def test_ivf_engine_batched_equals_looped(fixture_10k):
 
 
 def test_engine_backend_rules():
-    """``graph`` and ``distributed`` still raise (ROADMAP A10); a private
-    backend takes only f32 storage; ``tomb_by_key`` belongs to the
+    """``distributed`` still raises (ROADMAP A10); a private backend takes
+    only f32 storage; ``tomb_by_key`` belongs to the
     private-storage executor; an ivf engine keeps no arena."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((200, 8)).astype(np.float32)
     ls = generate_label_sets(200, LabelWorkloadConfig(num_labels=5, seed=1))
-    for backend in ("graph", "distributed"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            PortEngine.build(x, ls, backend=backend, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        PortEngine.build(x, ls, backend="distributed", device="cpu")
     with pytest.raises(ValueError, match="arena-native"):
         PortEngine.build(x, ls, backend="ivf", storage="int8", device="cpu")
     flat = PortEngine.build(x, ls, device="cpu")
