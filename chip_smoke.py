@@ -17,7 +17,15 @@ Phases, one JSON line each on standard output:
      k up to the pool's 32, k > N, a tombstone bitmap, and the same query
      rows bitwise equal at buckets 1, 8 and 256.  The graph's per-hop
      gather_distance: l2 / ip, ids < 0, D = 128 and 100, Q = 1 and
-     batches, buckets 1 / 8 / 256; and the card build of the graph against
+     batches, buckets 1 / 8 / 256; the decode attention flash_decode: f32
+     and bf16, minitron's GQA (24 heads over 8), MQA and MHA, Dh 128 / 64 /
+     16, S 1 / 127 / 4,096 / 32,768, lengths 1, S and random, poisoned
+     slots past the length (bitwise no change) and rows bitwise equal at
+     B = 1 and 128 (rtol = atol 1e-5 in f32; rtol 2^-6, two to four bf16
+     ulps, atol 1e-5 in bf16), and a planted fault (the plain version
+     with the last of 64 splits skipped) that the check must reject; and
+     the card
+     build of the graph against
      the plain build (bitwise on tie-free integer rows, the compiled
      reverse pass bitwise on its own; identical rows reported on random
      data).  Integer data
@@ -48,10 +56,26 @@ Phases, one JSON line each on standard output:
      queries, ``"cuda"`` == ``"ref"`` up to ties, every result passing its
      filter, every degree <= M; recall@10, QPS, p50/p99, hops and distance
      computations reported.
-     Every launch count is set to 0 just before each of 4, 4b, 4c and 4d
-     and read just after; each kernel of that path must have launched;
+  4e. minitron_4b at full width (4.19 B parameters, bf16, initialized on
+     the card from a seeded generator) served by a BatchedDecoder with 8
+     slots and max_len 2,048: 16 requests, prompts of 64–512 tokens,
+     max_new 32.  Gates: every request complete, flash_decode launched
+     once per layer per decode step, batched == sequential tokens for 4
+     requests, and, in the first decode step of 8 admitted requests, each
+     layer's kernel output against the plain version on the same inputs
+     (phase 3's tolerance), and the step's logits against the plain
+     attention's within 5% of the largest logit; a planted fault (the
+     token just written left out) must fail both, and the plain attention
+     with bf16 softmax weights is reported beside them.  Reported:
+     prefill ms, decode ms per step p50/p99, generated tokens/s, weight
+     and KV-cache bytes.
+     Every launch count is set to 0 just before each of 4, 4b, 4c, 4d and
+     4e and read just after; each kernel of that path must have launched;
   5. each kernel timed at its path's top-tier shapes beside its plain
-     version and its bound (gather_distance at one hop: [256, 16] ids).
+     version and its bound (gather_distance at one hop: [256, 16] ids;
+     flash_decode at the decode_32k cell, B 128 × S 32,768 with
+     minitron's heads, beside scaled_dot_product_attention; checked
+     against the plain version, planted fault rejected, as in phase 3).
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and the contract line
@@ -519,6 +543,143 @@ def graph_build_checks(dev, *, n=4000, n_random=2000, D=128, M=16,
         if out[name]["max_degree"] > M:
             raise AssertionError(f"graph build: degree above M ({name})")
     return out
+
+
+# flash_decode against its plain version, (rtol, atol) by dtype.  Both
+# compute in f32 from the same inputs and round once to the output dtype,
+# so they differ by f32 rounding (~1e-7 relative) and, in bf16, by at most
+# one ulp where the two f32 values straddle a rounding point: rtol 2^-6 is
+# two to four bf16 ulps of |plain|.  A split of 64 left out at S = 32,768
+# moves a typical output (√(e/S) ≈ 0.009) by ~1e-3, ~12% of its size.
+DECODE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 1e-5)}
+
+
+def decode_tol_ratio(got, want) -> float:
+    """max |got − want| / (atol + rtol·|want|) at ``want``'s dtype's
+    ``DECODE_TOL``: the check passes at ≤ 1."""
+    rtol, atol = DECODE_TOL[str(want.dtype).split(".")[1]]
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def dropped_split(q, k, v, lens):
+    """A planted fault: the plain version of a kernel that skips the last
+    live split of each row (the rows' slots past ``lens − split_len(S)``
+    left out)."""
+    from repro_torch.kernels import flash_decode as fd
+    sl = fd.split_len(k.shape[1])
+    short = (lens - ((lens - 1) % sl + 1)).clamp(min=1)
+    return fd.flash_decode_plain(q, k, v, short)
+
+
+def flash_decode_checks(dev, *, long_s=32_768, mid_s=4096, batch=128,
+                        seed=7):
+    """B6 (flash_decode) against its plain version, ``ref.
+    decode_attention_ref``: f32 and bf16; minitron's GQA (24 heads over
+    8), MQA and MHA; Dh 128, 64 and 16; S 1, 127, 4,096 and ``long_s``;
+    lengths 1, S and random; slots past the length poisoned with ±1e4
+    (bitwise no change); the same rows bitwise equal at B = 1 and
+    B = 128; and, at ``long_s`` with lengths = S, a planted fault (the
+    last of the 64 splits skipped) that the check must reject."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    def lengths_for(S, B):
+        r = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        r[0], r[-1] = 1, S
+        return r.to(torch.int32)
+
+    ratio = {"float32": 0.0, "bfloat16": 0.0}
+
+    def check(q, k, v, lens, tag):
+        kv = fd.flash_decode(q, k, v, lens)
+        pv = fd.flash_decode_plain(q, k, v, lens)
+        e = float((kv.float() - pv.float()).abs().max())
+        r = decode_tol_ratio(kv, pv)
+        if not (kv.dtype == q.dtype and kv.shape == q.shape
+                and torch.isfinite(kv).all() and r <= 1.0):
+            raise AssertionError(f"flash_decode {tag}: max abs err {e}, "
+                                 f"{r} x the tolerance")
+        name = str(q.dtype).split(".")[1]
+        ratio[name] = max(ratio[name], r)
+        return kv, e
+
+    heads = {"gqa_24_8": (8, 3), "mqa_8_1": (1, 8), "mha_8_8": (8, 1)}
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    fault = {}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for hname, (KH, G) in heads.items():
+            for Dh in (128, 64, 16):
+                for S in (1, 127, mid_s, long_s):
+                    B = 3
+                    q = randn(B, KH * G, Dh, dtype=dtype)
+                    k = randn(B, S, KH, Dh, dtype=dtype)
+                    v = randn(B, S, KH, Dh, dtype=dtype)
+                    _, e = check(q, k, v, lengths_for(S, B),
+                                 f"{name} {hname} Dh={Dh} S={S}")
+                    err[name] = max(err[name], e)
+                    cases += 1
+        # poisoning: slots at or past a row's length are never read
+        KH, G, Dh, S = 8, 3, 128, mid_s
+        q = randn(3, KH * G, Dh, dtype=dtype)
+        k = randn(3, S, KH, Dh, dtype=dtype)
+        v = randn(3, S, KH, Dh, dtype=dtype)
+        lens = torch.tensor([100, 17, S - 96], dtype=torch.int32,
+                            device=dev)
+        base, e = check(q, k, v, lens, f"{name} before poisoning")
+        for r, n in enumerate(lens.tolist()):
+            k[r, n:] = 1e4 * (-1) ** r
+            v[r, n:] = -1e4 * (-1) ** r
+        poisoned, _ = check(q, k, v, lens, f"{name} poisoned")
+        if not torch.equal(base, poisoned):
+            raise AssertionError(f"flash_decode {name}: poisoned slots "
+                                 f"changed the output")
+        # batch invariance: row r alone equals row r of B = 128, bitwise
+        B = batch
+        q = randn(B, KH * G, Dh, dtype=dtype)
+        k = randn(B, S, KH, Dh, dtype=dtype)
+        v = randn(B, S, KH, Dh, dtype=dtype)
+        lens = lengths_for(S, B)
+        full, e2 = check(q, k, v, lens, f"{name} B={B}")
+        for r in sorted({0, 1, B // 2 + 13, B - 1} & set(range(B))):
+            one = fd.flash_decode(q[r:r + 1].contiguous(),
+                                  k[r:r + 1].contiguous(),
+                                  v[r:r + 1].contiguous(),
+                                  lens[r:r + 1].contiguous())
+            if not torch.equal(one[0], full[r]):
+                raise AssertionError(f"flash_decode {name}: row {r} at "
+                                     f"B = 1 differs from B = {B}")
+        err[name] = max(err[name], e, e2)
+        # the planted fault: the last split skipped must fail the check
+        KH, G, Dh, S = 8, 3, 128, long_s
+        q = randn(2, KH * G, Dh, dtype=dtype)
+        k = randn(2, S, KH, Dh, dtype=dtype)
+        v = randn(2, S, KH, Dh, dtype=dtype)
+        lens = torch.full((2,), S, dtype=torch.int32, device=dev)
+        kv, e3 = check(q, k, v, lens, f"{name} lengths = S")
+        pv = fd.flash_decode_plain(q, k, v, lens)
+        fault[name] = decode_tol_ratio(dropped_split(q, k, v, lens), pv)
+        if fault[name] <= 1.0:
+            raise AssertionError(f"flash_decode {name}: the check passed a "
+                                 f"split skipped ({fault[name]} x the "
+                                 f"tolerance)")
+        err[name] = max(err[name], e3)
+        cases += 3
+    return dict(cases=cases, max_abs_err={"flash_decode": max(err.values())},
+                max_abs_err_by_dtype=err, tol_ratio_by_dtype=ratio,
+                planted_fault_tol_ratio_by_dtype=fault,
+                tolerance=f"(rtol, atol) {DECODE_TOL}; poisoned slots and "
+                          f"B = 1 vs B = {batch}: bitwise; a split skipped "
+                          f"at S = {long_s} rejected")
 
 
 # ---------------------------------------------------------------------------
@@ -1003,6 +1164,231 @@ def graph_path(dev, *, data, counts, clock):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: minitron_4b decoding at full width
+# ---------------------------------------------------------------------------
+
+DECODE = dict(arch="minitron_4b", slots=8, max_len=2048, requests=16,
+              prompt_tokens=(64, 512), max_new=32, sequential=4, seed=11)
+# step-1 logits, max |x − plain| over max |plain|: through 32 random layers
+# rounding alone reads 0.016 (the kernel) and 0.019 (bf16 softmax weights),
+# the token just written left out 0.145 (on an H100); the limit sits
+# between them
+STEP1_LOGITS_LIMIT = 0.05
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _timed(fn, sink, dev):
+    """``fn`` with its device time (host clock between two synchronizes)
+    appended to ``sink`` in ms at every call."""
+    import torch
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize(dev)
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapped
+
+
+def decode_path(dev):
+    """Phase 4e: ``minitron_4b`` at its published widths (32 layers,
+    d_model 3,072, 24 heads over 8 KV heads, head_dim 128, vocab 256,000;
+    4.19 B parameters, bf16), initialized on the card from a seeded
+    ``torch.Generator``, served by a ``BatchedDecoder`` with 8 slots and
+    ``max_len`` 2,048: 16 requests with prompts of 64–512 tokens and
+    ``max_new`` 32.  Decode attention runs through the flash_decode
+    kernel, once per layer per decode step.  Returns what the gates
+    (:func:`decode_gates`) need."""
+    import torch
+
+    from repro_torch import arch as A
+    from repro_torch.models import common
+    from repro_torch.serve import BatchedDecoder, Request
+
+    c = DECODE
+    spec = A.get_arch(c["arch"])
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    params = common.init_params(gen, A.param_specs(spec))
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(c["seed"])
+    lo, hi = c["prompt_tokens"]
+    prompts = [rng.integers(0, spec.cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, c["requests"])]
+    dec = BatchedDecoder(spec, params, c["slots"], c["max_len"], device=dev)
+    prefill_ms, step_ms = [], []
+    dec._prefill1 = _timed(dec._prefill1, prefill_ms, dev)
+    dec._decode = _timed(dec._decode, step_ms, dev)
+    reqs = [Request(prompt=p, max_new=c["max_new"], rid=i)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    done = dec.run(reqs)
+    run_s = time.perf_counter() - t0
+    from repro_torch.kernels import flash_decode as fd
+    launches = fd.flash_decode.launches
+    generated = sum(len(r.generated) for r in done)
+    if sorted(r.rid for r in done) != list(range(c["requests"])) or any(
+            len(r.generated) != c["max_new"]
+            or not all(0 <= t < spec.cfg.vocab for t in r.generated)
+            for r in done):
+        raise AssertionError("decode_path: a request came back incomplete")
+    if launches != spec.cfg.n_layers * dec.steps:
+        raise AssertionError(f"decode_path: flash_decode launched {launches} "
+                             f"times for {dec.steps} steps of "
+                             f"{spec.cfg.n_layers} layers")
+    weight_bytes = _tree_bytes(params)
+    kv_bytes = _tree_bytes(dec.cache)
+    stats = dict(
+        arch=c["arch"], params=A.count_total_params(spec),
+        weight_bytes=weight_bytes, kv_cache_bytes=kv_bytes,
+        slots=c["slots"], max_len=c["max_len"], requests=c["requests"],
+        prompt_tokens=[int(p.shape[0]) for p in prompts],
+        max_new=c["max_new"], init_seconds=init_s, run_seconds=run_s,
+        decode_steps=dec.steps, flash_decode_launches=launches,
+        generated_tokens=generated, tokens_per_s=generated / run_s,
+        prefill_ms_p50=float(np.percentile(prefill_ms, 50)),
+        prefill_ms_max=max(prefill_ms),
+        prefill_tokens_per_s=sum(int(p.shape[0]) for p in prompts)
+        / (sum(prefill_ms) / 1e3),
+        decode_step_ms_p50=float(np.percentile(step_ms, 50)),
+        decode_step_ms_p99=float(np.percentile(step_ms, 99)),
+        # the least a step could take: every weight read once, over HBM
+        decode_step_weights_bound_ms=weight_bytes / PEAK_BYTES_PER_S * 1e3)
+    dec._prefill1 = A.make_prefill(spec, c["max_len"])
+    dec._decode = A.make_decode(spec)
+    return dict(spec=spec, params=params, dec=dec, prompts=prompts,
+                done=sorted(done, key=lambda r: r.rid), stats=stats)
+
+
+def _plain_bf16_weights(q, k, v, lengths):
+    """The plain decode attention with the softmax weights rounded to the
+    cache's dtype before the value product, as the JAX package's decoders
+    round them: a control for how far rounding alone moves the logits."""
+    import torch
+    B, H, Dh = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    s = torch.einsum("bhgd,bshd->bhgs",
+                     q.float().reshape(B, KH, H // KH, Dh), k.float())
+    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None, None, :], s / Dh ** 0.5,
+                    torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1).to(v.dtype).float()
+    return torch.einsum("bhgs,bshd->bhgd", w, v.float()).reshape(
+        B, H, Dh).to(q.dtype)
+
+
+def decode_gates(state):
+    """Phase 4e's gates, after the launch counts were read: batched ≡
+    sequential tokens for the first 4 requests (each served alone); then
+    the first decode step of 8 admitted requests, from the same cache,
+    four ways: through the plain attention (``backend="ref"``), the plain
+    attention with bf16 softmax weights, a planted fault (the plain
+    attention over ``lengths − 1``: the token just written left out) and
+    the kernel.  Gate: in the kernel's step, each layer's kernel output
+    against the plain version on that layer's inputs, within phase 3's
+    tolerance, and the fault outside it in every layer; and the step's
+    logits, kernel against plain, within ``STEP1_LOGITS_LIMIT`` × the
+    largest plain logit, the fault's outside it.  The bf16-weights
+    control is reported."""
+    import torch
+
+    from repro_torch import arch as A
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request
+
+    c = DECODE
+    dec, spec = state["dec"], state["spec"]
+    for r in state["done"][:c["sequential"]]:
+        [solo] = dec.run([Request(prompt=state["prompts"][r.rid],
+                                  max_new=c["max_new"])])
+        if solo.generated != r.generated:
+            raise AssertionError(f"decode_path: request {r.rid} batched "
+                                 f"differs from sequential")
+    for p in state["prompts"][:c["slots"]]:
+        assert dec.admit(Request(prompt=p, max_new=c["max_new"]))
+    decode = A.make_decode(spec)
+    batch = dec.decode_batch()
+    flash_decode, layers = ops.flash_decode, []
+
+    def kernel(q, k, v, lengths, backend=None):
+        out = flash_decode(q, k, v, lengths, backend="cuda")
+        layers.append((q, k, v, lengths.to(torch.int32), out))
+        return out
+
+    attend = {
+        "plain": lambda q, k, v, n, backend=None: flash_decode(
+            q, k, v, n, backend="ref"),
+        "plain_bf16_weights": lambda q, k, v, n, backend=None:
+            _plain_bf16_weights(q, k, v, n.to(torch.int32)),
+        "fault_token_left_out": lambda q, k, v, n, backend=None:
+            flash_decode(q, k, v, n - 1, backend="ref"),
+        # last: its step leaves the cache as a served step would (each step
+        # writes its own K/V at ``position`` before reading them)
+        "kernel": kernel,
+    }
+    logits = {}
+    try:
+        for name, fn in attend.items():
+            ops.flash_decode = fn
+            logits[name] = decode(state["params"], dec.cache,
+                                  batch)[0].float()
+    finally:
+        ops.flash_decode = flash_decode
+    dec.evict_all()
+    if len(layers) != spec.cfg.n_layers:
+        raise AssertionError(f"decode_path: {len(layers)} kernel calls in "
+                             f"one step of {spec.cfg.n_layers} layers")
+    sound, fault = [], []
+    for q, k, v, n, out in layers:
+        pv = fd.flash_decode_plain(q, k, v, n)
+        sound.append(decode_tol_ratio(out, pv))
+        fault.append(decode_tol_ratio(fd.flash_decode_plain(q, k, v, n - 1),
+                                      pv))
+    if max(sound) > 1.0 or min(fault) <= 1.0:
+        raise AssertionError(f"decode_path: step-1 attention, kernel vs "
+                             f"plain per layer: {max(sound)} x the "
+                             f"tolerance (must be <= 1); the planted fault "
+                             f"{min(fault)} x (must be > 1)")
+    plain = logits["plain"]
+    if not all(torch.isfinite(t).all() for t in logits.values()):
+        raise AssertionError("decode_path: step-1 logits not finite")
+    scale = float(plain.abs().max())
+    rel = {name: float((t - plain).abs().max()) / scale
+           for name, t in logits.items() if name != "plain"}
+    if not rel["kernel"] <= STEP1_LOGITS_LIMIT < rel["fault_token_left_out"]:
+        raise AssertionError(f"decode_path: step-1 logits against plain "
+                             f"over the largest logit: {rel} (the kernel "
+                             f"must read <= {STEP1_LOGITS_LIMIT}, the fault "
+                             f"above it)")
+    return dict(
+        batched_equals_sequential=c["sequential"],
+        step1_attention_tol_ratio_max=max(sound),
+        step1_attention_fault_tol_ratio_min=min(fault),
+        step1_logits_scale=scale,
+        step1_logits_rel_err_vs_plain=rel,
+        step1_logits_max_abs_err_vs_plain={
+            name: float((t - plain).abs().max())
+            for name, t in logits.items() if name != "plain"},
+        step1_argmax_agreement_vs_plain={
+            name: float((t.argmax(-1) == plain.argmax(-1)).float().mean())
+            for name, t in logits.items() if name != "plain"},
+        step1_tolerance="per layer, kernel vs plain on the same inputs: "
+                        f"(rtol, atol) {DECODE_TOL['bfloat16']}; logits: "
+                        f"{STEP1_LOGITS_LIMIT} x max |plain logit|")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel times at the main path's shapes, beside their bounds
 # ---------------------------------------------------------------------------
 
@@ -1269,6 +1655,100 @@ def time_graph_kernel(graph_eng, ctx, clock, launches, errs, seed=6):
                    dim=D, index_rows=ix.num_vectors, pairs=pairs))]
 
 
+DECODE_32K = dict(batch=128, seq=32_768, kv_heads=8, group=3, head_dim=128,
+                  fallback_batch=32)
+
+
+def _fits_or_smaller(fn, batches):
+    """``(batch, fn(batch))`` for the first batch of ``batches`` whose call
+    fits in device memory."""
+    import torch
+    for b in batches:
+        try:
+            return b, fn(b)
+        except torch.OutOfMemoryError:
+            torch.cuda.empty_cache()
+    raise AssertionError(f"no batch of {batches} fits")
+
+
+def time_decode_kernel(dev, clock, launches, errs, seed=12):
+    """flash_decode at the ``decode_32k`` cell's shape (B 128, S 32,768)
+    with minitron_4b's heads (KH 8, G 3, Dh 128), bf16, lengths = S,
+    beside its bound (K and V read once), its plain version and
+    ``scaled_dot_product_attention`` (GQA, a length mask, the layout
+    transposes included).  Where the plain version's f32 copies of the
+    cache (34 GB) or the library call do not fit, they run at B 32."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+
+    c = DECODE_32K
+    B, S, KH, G, Dh = (c["batch"], c["seq"], c["kv_heads"], c["group"],
+                       c["head_dim"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, KH * G, Dh), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((B, S, KH, Dh), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn((B, S, KH, Dh), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    ms = clock.ms(lambda: fd.flash_decode(q, k, v, lens), budget_s=1.0)
+    kv = fd.flash_decode(q, k, v, lens)
+    batches = (B, c["fallback_batch"])
+
+    def plain(b):
+        out = fd.flash_decode_plain(q[:b], k[:b], v[:b], lens[:b])
+        return out, clock.ms(lambda: fd.flash_decode_plain(
+            q[:b], k[:b], v[:b], lens[:b]), budget_s=1.0, max_reps=5)
+
+    def library(b):
+        def call():
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < lens[:b, None])[:, None, None, :]
+            return F.scaled_dot_product_attention(
+                q[:b, :, None, :], k[:b].transpose(1, 2),
+                v[:b].transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)[:, :, 0, :]
+        return call(), clock.ms(call, budget_s=1.0, max_reps=10)
+
+    plain_b, (pv, plain_ms) = _fits_or_smaller(plain, batches)
+    err = float((kv[:plain_b].float() - pv.float()).abs().max())
+    ratio = decode_tol_ratio(kv[:plain_b], pv)
+    if ratio > 1.0:
+        raise AssertionError(f"flash_decode at decode_32k: max abs err {err}"
+                             f", {ratio} x the tolerance")
+    b = plain_b
+    fault = decode_tol_ratio(dropped_split(q[:b], k[:b], v[:b], lens[:b]),
+                             pv)
+    if fault <= 1.0:
+        raise AssertionError(f"flash_decode at decode_32k: the check passed "
+                             f"a split skipped ({fault} x the tolerance)")
+    del pv
+    torch.cuda.empty_cache()
+    lib_b, (lv, lib_ms) = _fits_or_smaller(library, batches)
+    lib_err = float((kv[:lib_b].float() - lv.float()).abs().max())
+    del lv
+    nbytes = (2 * B * S * KH * Dh * 2 + 2 * 2 * B * KH * G * Dh + 4 * B)
+    bound_ms, bound_by = _bound(nbytes, 4 * B * KH * G * S * Dh)
+    return [dict(
+        name="flash_decode", route="cuda",
+        source="src/repro_torch/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:106",
+        launches=launches["flash_decode"],
+        max_abs_err=max(err, errs["flash_decode"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=lib_ms,
+        shape=dict(batch=B, seq=S, kv_heads=KH, group=G, head_dim=Dh,
+                   dtype="bfloat16", lengths="S", splits=-(-S // fd.split_len(S)),
+                   plain_batch=plain_b, library_batch=lib_b,
+                   tol_ratio=ratio, planted_fault_tol_ratio=fault,
+                   library="scaled_dot_product_attention(enable_gqa=True, "
+                           "length mask)",
+                   library_max_abs_err=lib_err))]
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1291,6 +1771,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import filtered_topk as ft
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels import gather_distance as gd
     from repro_torch.kernels import masked_distance as md
@@ -1334,6 +1815,14 @@ def main() -> int:
     checks["max_abs_err"].update(hop["max_abs_err"])
     checks["gather_distance_tolerance"] = hop["tolerance"]
     checks["gather_distance_random_bitwise"] = hop["random_bitwise"]
+    dec = flash_decode_checks(dev)
+    checks["cases"] += dec["cases"]
+    checks["max_abs_err"].update(dec["max_abs_err"])
+    checks["flash_decode_max_abs_err_by_dtype"] = dec["max_abs_err_by_dtype"]
+    checks["flash_decode_tol_ratio_by_dtype"] = dec["tol_ratio_by_dtype"]
+    checks["flash_decode_planted_fault_tol_ratio_by_dtype"] = dec[
+        "planted_fault_tol_ratio_by_dtype"]
+    checks["flash_decode_tolerance"] = dec["tolerance"]
     emit("kernels_vs_plain", seconds=time.perf_counter() - t0, **checks)
     t0 = time.perf_counter()
     emit("graph_build_vs_plain", **graph_build_checks(dev),
@@ -1343,7 +1832,8 @@ def main() -> int:
                 "segmented_gather_distance": gd.segmented_gather_distance,
                 "masked_distance": md.masked_distance,
                 "filtered_topk": ft.filtered_topk,
-                "gather_distance": gd.gather_distance}
+                "gather_distance": gd.gather_distance,
+                "flash_decode": fd.flash_decode}
 
     def counts():
         return {name: fn.launches for name, fn in wrappers.items()}
@@ -1380,6 +1870,13 @@ def main() -> int:
     for name in ("masked_distance", "filtered_topk"):
         launches[name] = at_ivf[name] + at_scan[name]
     launches["gather_distance"] = at_graph["gather_distance"]
+    decode_state, at_decode = drive(
+        "decode_path", ("flash_decode",), lambda: decode_path(dev))
+    emit("decode_path_numbers", **decode_state["stats"],
+         **decode_gates(decode_state))
+    launches["flash_decode"] = at_decode["flash_decode"]
+    del decode_state
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     kernels = time_kernels(engines, (ctx["qv"], ctx["qls"]), clock, launches,
@@ -1388,6 +1885,10 @@ def main() -> int:
                                   checks["max_abs_err"])
     kernels += time_graph_kernel(graph_eng, ctx, clock, launches,
                                  checks["max_abs_err"])
+    del results, engines, ivf_eng, flat, graph_eng
+    torch.cuda.empty_cache()
+    kernels += time_decode_kernel(dev, clock, launches,
+                                  checks["max_abs_err"])
     emit("kernel_times", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(smi, flush=True)

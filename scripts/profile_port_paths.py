@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's search paths, on one NVIDIA card.
 
-    python3 scripts/profile_port_paths.py      # from the repository root
+    python3 scripts/profile_port_paths.py          # from the repository root
+    python3 scripts/profile_port_paths.py decode   # the decoder only
 
 Builds ``chip_smoke.py``'s paper-scale workload (1,000,000 × 128 vectors,
 1,000 queries, one EIS selection at c = 0.2), then three searchers over
 it: the f32 flat engine with the fused scan (the main path), the engine on
 the ``ivf`` backend and the private-copy ``FlatIndex`` over every row;
 then the engine on the ``graph`` backend over the first 100,000 rows with
-its own selection (``chip_smoke.py``'s phase 4d at its smallest N).
-Each is warmed with two 1,000-query batches, then one batch is traced
+its own selection (``chip_smoke.py``'s phase 4d at its smallest N); then
+``minitron_4b`` at full width (``chip_smoke.py``'s phase 4e): one
+prefill of a 300-token prompt and one decode step of 8 live slots.
+Each is warmed with two calls (for a searcher, 1,000-query batches),
+then one call is traced
 with ``torch.profiler`` (CPU and CUDA activities).  One JSON line per
 searcher: the batch's wall time, the device time the trace saw (the sum
 of its kernels' device time: one stream, so they do not overlap), the
@@ -54,6 +58,37 @@ def profile(search, dev):
                      for us, n, name in kernels[:5]])
 
 
+def decode_searchers(dev, chip_smoke):
+    """Phase 4e's decoder with its 8 slots filled: one prefill and one
+    decode step to trace (the step advances the slots; ``max_new`` 32
+    leaves room for the warm calls)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import arch as A
+    from repro_torch.models import common
+    from repro_torch.serve import BatchedDecoder, Request
+
+    c = chip_smoke.DECODE
+    spec = A.get_arch(c["arch"])
+    params = common.init_params(
+        torch.Generator(device=dev).manual_seed(c["seed"]),
+        A.param_specs(spec))
+    dec = BatchedDecoder(spec, params, c["slots"], c["max_len"], device=dev)
+    rng = np.random.default_rng(c["seed"])
+    for _ in range(c["slots"]):
+        dec.admit(Request(prompt=rng.integers(0, spec.cfg.vocab, 300)
+                          .astype(np.int32), max_new=c["max_new"]))
+    prefill = A.make_prefill(spec, c["max_len"])
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, spec.cfg.vocab, (1, 300))).to(dev),
+             "positions": torch.arange(300, dtype=torch.int32,
+                                       device=dev)[None]}
+    return {"minitron_4b prefill, 300 tokens":
+            lambda: prefill(params, batch),
+            "minitron_4b decode step, 8 slots": dec.step}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -70,6 +105,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_build.build()
+    if sys.argv[1:] == ["decode"]:
+        for name, run in decode_searchers(dev, chip_smoke).items():
+            print(json.dumps({"searcher": name, **profile(run, dev)},
+                             default=float), flush=True)
+        print(chip_smoke.nvidia_smi(), flush=True)
+        return 0
     vectors, label_sets, qv, qls = chip_smoke.paper_data(
         chip_smoke.PAPER["n_vectors"])
     qkeys = observed_query_keys(qls)
@@ -98,6 +139,11 @@ def main() -> int:
         print(json.dumps({"searcher": name, "queries": len(qls),
                           **profile(search, dev)}, default=float),
               flush=True)
+    del searchers, flat_eng, ivf_eng, flat, graph_eng
+    torch.cuda.empty_cache()
+    for name, run in decode_searchers(dev, chip_smoke).items():
+        print(json.dumps({"searcher": name, **profile(run, dev)},
+                         default=float), flush=True)
     print(chip_smoke.nvidia_smi(), flush=True)
     return 0
 

@@ -509,8 +509,8 @@ class LabelHybridEngine:
 
     def search_batched(self, queries: np.ndarray,
                        query_label_sets: Sequence[tuple[int, ...]], k: int,
-                       *, min_bucket: int = 1, tomb_by_key=None
-                       ) -> tuple[np.ndarray, np.ndarray]:
+                       *, min_bucket: int = 1, tomb_by_key=None,
+                       **search_params) -> tuple[np.ndarray, np.ndarray]:
         """Batched multi-index executor.  Routes the batch in one
         vectorized pass, then:
 
@@ -529,7 +529,11 @@ class LabelHybridEngine:
         ``tomb_by_key`` (private-storage backends only): per-selected-key
         packed tombstone bitmaps over each index's LOCAL rows; keys absent
         from it search tombstone-free.  Arena-native engines take deletes
-        through the arena's bitmap and reject it."""
+        through the arena's bitmap and reject it.
+
+        ``search_params`` (private-storage backends only) go to every
+        index's ``search_padded``, for example the graph's ``ef`` and
+        ``strategy``; arena-native engines take none and raise."""
         telem = _metrics.enabled() or _trace.enabled()
         t_start = time.perf_counter() if telem else 0.0
         queries = np.asarray(queries, dtype=np.float32)
@@ -547,7 +551,7 @@ class LabelHybridEngine:
         if not self._arena_native:
             self._search_private(queries, qwords, routed, k, n, out_d, out_i,
                                  min_bucket=min_bucket,
-                                 tomb_by_key=tomb_by_key)
+                                 tomb_by_key=tomb_by_key, **search_params)
             if telem:
                 record_search_telemetry(
                     self, routed, qmasks, k, Q, t_start=t_start,
@@ -558,6 +562,7 @@ class LabelHybridEngine:
                 "tomb_by_key is the private-storage lazy-delete path; "
                 "arena-native engines take deletes through the arena's "
                 "tombstone bitmap")
+        self._no_search_params(search_params)
         pend = []
         tier_bucket: dict[int, int] = {}
         for qids, qp, lp, starts, lens, lmax, g in \
@@ -582,7 +587,7 @@ class LabelHybridEngine:
         return out_d, out_i
 
     def _search_private(self, queries, qwords, routed, k, n, out_d, out_i,
-                        *, min_bucket, tomb_by_key):
+                        *, min_bucket, tomb_by_key, **search_params):
         """The private-storage half of :meth:`search_batched`: one padded
         dispatch per routed index, every group queued before the first
         copy back, then the local → global id map (local id ==
@@ -593,7 +598,8 @@ class LabelHybridEngine:
         pend = []
         for key, qids in by_key.items():
             tomb = tomb_by_key.get(key) if tomb_by_key else None
-            extra = {} if tomb is None else {"tomb": tomb}
+            extra = search_params if tomb is None else dict(search_params,
+                                                            tomb=tomb)
             d, li = dispatch_padded(self.indexes[key].search_padded,
                                     queries[qids], qwords[qids], k,
                                     min_bucket=min_bucket, **extra)
@@ -636,10 +642,14 @@ class LabelHybridEngine:
 
     def search_looped(self, queries: np.ndarray,
                       query_label_sets: Sequence[tuple[int, ...]], k: int,
-                      tomb_by_key=None) -> tuple[np.ndarray, np.ndarray]:
+                      tomb_by_key=None,
+                      **search_params) -> tuple[np.ndarray, np.ndarray]:
         """Reference executor: per-key Python loop, one un-bucketed
         ``search`` per selected index — the parity oracle for
-        :meth:`search_batched`, ``tomb_by_key`` included."""
+        :meth:`search_batched`, ``tomb_by_key`` and ``search_params``
+        included."""
+        if self._arena_native:
+            self._no_search_params(search_params)
         queries = np.asarray(queries, dtype=np.float32)
         Q = queries.shape[0]
         n = len(self.label_sets)
@@ -653,7 +663,8 @@ class LabelHybridEngine:
 
         for key, qids in by_key.items():
             tomb = tomb_by_key.get(key) if tomb_by_key else None
-            extra = {} if tomb is None else {"tomb": tomb}
+            extra = search_params if tomb is None else dict(search_params,
+                                                            tomb=tomb)
             d, li = self.indexes[key].search(queries[qids], qwords[qids], k,
                                              **extra)
             out_d[qids] = d
@@ -661,13 +672,22 @@ class LabelHybridEngine:
         return out_d, out_i
 
     # -- warmup ----------------------------------------------------------------
-    def warmup(self, ks: Sequence[int], buckets: Sequence[int]) -> dict:
+    def _no_search_params(self, search_params) -> None:
+        if search_params:
+            raise TypeError(f"arena-native backend {self.backend!r} "
+                            f"takes no search params; got "
+                            f"{sorted(search_params)}")
+
+    def warmup(self, ks: Sequence[int], buckets: Sequence[int],
+               **search_params) -> dict:
         """Run every launch the first real batches need once on zero
         queries, so they find the kernels built and loaded: on arena-native
         backends every (k ∈ ks, Q-bucket ∈ buckets, candidate-span tier)
         segmented search, on private-storage backends every selected
-        index's ``search_padded`` per (k, Q-bucket).  Returns
-        ``{"seconds", "programs"}``."""
+        index's ``search_padded`` per (k, Q-bucket), with
+        ``search_params``.  Returns ``{"seconds", "programs"}``."""
+        if self._arena_native:
+            self._no_search_params(search_params)
         t0 = time.perf_counter()
         D = self.vectors.shape[1]
         W = self.label_words.shape[1]
@@ -682,7 +702,7 @@ class LabelHybridEngine:
                 zero = np.zeros(bucket, np.int32)
                 if not self._arena_native:
                     for index in self.indexes.values():
-                        index.search_padded(qz, lz, k)
+                        index.search_padded(qz, lz, k, **search_params)
                         programs += 1
                     continue
                 for lmax in span_tiers:
@@ -698,10 +718,11 @@ class LabelHybridEngine:
         return {"seconds": time.perf_counter() - t0, "programs": programs}
 
     def warmup_serving(self, ks: Sequence[int], min_bucket: int,
-                       max_batch: int) -> dict:
+                       max_batch: int, **search_params) -> dict:
         """Serving-shaped :meth:`warmup` over the full power-of-two bucket
         ladder from ``min_bucket`` to ``max_batch``."""
-        return self.warmup(ks, serving_buckets(min_bucket, max_batch))
+        return self.warmup(ks, serving_buckets(min_bucket, max_batch),
+                           **search_params)
 
     # -- reporting --------------------------------------------------------------
     def stats(self) -> EngineStats:

@@ -7,7 +7,8 @@ compressed-scan shortlist, and global ids resolved on the device.
 ``masked_distance`` and ``filtered_topk`` are the dense searches of the
 private-storage indexes (IVF's two distance passes, the private-copy
 ``FlatIndex``); ``gather_distance`` is the graph's per-hop neighbour
-distance.  Backends:
+distance; ``flash_decode`` is the transformer's one-token decode
+attention.  Backends:
 
   * ``"ref"`` — plain torch on any device.  For the segmented search it
     is arithmetically the JAX package's ``"ref"`` executor (norms-form
@@ -18,7 +19,8 @@ distance.  Backends:
     scan stage, ``segmented_gather_distance`` for the unfused scan stage
     and the rerank stage (direct-form l2, as the JAX ``"pallas"``
     backend), ``masked_distance`` and ``filtered_topk`` for the dense
-    searches, ``gather_distance`` for the graph's hops.  On CPU tensors their wrappers run the plain versions.
+    searches, ``gather_distance`` for the graph's hops, ``flash_decode``
+    for decode attention.  On CPU tensors their wrappers run the plain versions.
 
 Every top-k is a stable sort (``ref.lex_topk``): ``torch.topk`` does not
 break ties by index.
@@ -33,6 +35,7 @@ from ..index.base import resolve_device
 from ..launch import roofline
 from ..obs import metrics as _metrics
 from . import filtered_topk as _topk
+from . import flash_decode as _decode
 from . import masked_distance as _dist
 from . import ref
 from .filtered_topk import masked_topk_tail  # noqa: F401  (re-export)
@@ -264,3 +267,20 @@ def _gather_scan_distance(q, lq, gid, valid, *, ax, alw, tomb, scales, zeros,
         d = torch.where(ref.tombstone_mask(tomb, gid), d,
                         torch.full_like(d, ref.INF))
     return d
+
+
+def flash_decode(q, k_cache, v_cache, lengths, *,
+                 backend: str | None = None):
+    """One-token GQA decode attention (the JAX package's contract):
+    ``q`` [B, H, Dh], ``k_cache``/``v_cache`` [B, S, KH, Dh], ``lengths``
+    [B] (valid cache slots per row) -> [B, H, Dh] in q's dtype, on q's
+    device.  Any S: the kernel masks the tail itself, nothing is padded.
+    ``"cuda"`` takes the split-K ``flash_decode`` kernel, ``"ref"`` its
+    plain version (f32 throughout)."""
+    backend = backend or default_backend(q.device)
+    _check_backend(backend)
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    if backend == "ref":
+        return _decode.flash_decode_plain(q, k_cache, v_cache, lengths)
+    return _decode.flash_decode(q.contiguous(), k_cache.contiguous(),
+                                v_cache.contiguous(), lengths)

@@ -13,6 +13,8 @@ Semantics, as in the JAX package:
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -255,3 +257,23 @@ def segmented_filtered_topk(q, lq, ax, alw, axn, rows_concat, starts, lens,
         sel = torch.where(empty, lmax, sel)
         vals = torch.where(empty, INF, vals)
     return vals, sel.to(torch.int32)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths):
+    """Oracle for flash_decode: one-token GQA attention against a
+    length-masked KV cache, all in f32.  ``q`` [B, H, Dh]; ``k_cache`` /
+    ``v_cache`` [B, S, KH, Dh]; ``lengths`` [B] (slots at or past a row's
+    length are set to −1e30 before a full softmax).  Returns [B, H, Dh] in
+    q's dtype."""
+    B, H, Dh = q.shape
+    S, KH = k_cache.shape[1], k_cache.shape[2]
+    qf = q.to(torch.float32).reshape(B, KH, H // KH, Dh)
+    kf = k_cache.to(torch.float32)
+    vf = v_cache.to(torch.float32)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, kf) / math.sqrt(Dh)
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", w, vf)
+    return out.reshape(B, H, Dh).to(q.dtype)

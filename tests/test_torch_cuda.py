@@ -146,3 +146,42 @@ def test_graph_kernel_and_build_on_the_card(dev):
     out = chip_smoke._graph_cuda_vs_ref(eng, qv, [tuple(s) for s in qls], 7,
                                         list(range(120)))
     assert out["equal"] + out["value_ties"] == 120
+
+
+def test_flash_decode_and_batched_decoder_on_the_card(dev):
+    """B6 against its plain version (chip_smoke's phase-3 checks at a
+    smaller S and batch), then reduced minitron_4b served by a
+    BatchedDecoder on the card: batched ≡ sequential bitwise, the kernel
+    launched once per layer per decode step."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    import torch
+
+    out = chip_smoke.flash_decode_checks(dev, long_s=8192, mid_s=1024,
+                                         batch=32)
+    assert out["cases"] > 0
+
+    from repro_torch import arch as A
+    from repro_torch.configs import reduced_arch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.common import init_params
+    from repro_torch.serve import BatchedDecoder, Request
+
+    spec = reduced_arch("minitron_4b")
+    params = init_params(torch.Generator(device=dev).manual_seed(0),
+                         A.param_specs(spec))
+    dec = BatchedDecoder(spec, params, 3, 64, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, spec.cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 7, 6)]
+    solo = [dec.run([Request(prompt=p, max_new=8)])[0].generated
+            for p in prompts]
+    before, steps = fd.flash_decode.launches, dec.steps
+    done = sorted(dec.run([Request(prompt=p, max_new=8, rid=i)
+                           for i, p in enumerate(prompts)]),
+                  key=lambda r: r.rid)
+    assert [r.generated for r in done] == solo
+    assert fd.flash_decode.launches - before \
+        == spec.cfg.n_layers * (dec.steps - steps)

@@ -36,11 +36,18 @@ def _port():
     from repro_torch.core import engine as port_engine
     from repro_torch.obs import metrics as port_metrics
     from repro_torch.obs import trace as port_trace
+    # release the JAX programs compiled in this worker before this
+    # module (and, at the end, by it): each holds memory maps, and
+    # a worker that reaches vm.max_map_count segfaults in its next
+    # XLA compile (ROADMAP C1)
+    import jax
+    jax.clear_caches()
     # one intra-op thread: the suite runs in several worker processes
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    jax.clear_caches()
 
 KS = (1, 4, 17)
 

@@ -60,11 +60,18 @@ def _port():
     from repro_torch.kernels import gather_distance as tgd
     from repro_torch.kernels import ops as tops
     from repro_torch.kernels import ref as tref
+    # release the JAX programs compiled in this worker before this
+    # module (and, at the end, by it): each holds memory maps, and
+    # a worker that reaches vm.max_map_count segfaults in its next
+    # XLA compile (ROADMAP C1)
+    import jax
+    jax.clear_caches()
     # one intra-op thread: the suite runs in several worker processes
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    jax.clear_caches()
 
 
 def tie_free_points(n, D, n_cand, scale, seed):

@@ -45,11 +45,17 @@ def _port():
     from repro_torch.kernels import ops as tops
     from repro_torch.kernels import ref as tref
     from repro_torch.launch import roofline
+    # release the JAX programs compiled in this worker before this
+    # module (and, at the end, by it): each holds memory maps, and
+    # a worker that reaches vm.max_map_count segfaults in its next
+    # XLA compile (ROADMAP C1)
+    jax.clear_caches()
     # one intra-op thread: the suite runs in several worker processes
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    jax.clear_caches()
 
 DTYPES = ("f32", "fp16", "int8")
 

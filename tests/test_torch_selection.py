@@ -30,11 +30,18 @@ def _port():
     import repro_torch.core as T
     from repro_torch.core import labels as t_labels
     from repro_torch.data import VectorLabelDataset as TD
+    # release the JAX programs compiled in this worker before this
+    # module (and, at the end, by it): each holds memory maps, and
+    # a worker that reaches vm.max_map_count segfaults in its next
+    # XLA compile (ROADMAP C1)
+    import jax
+    jax.clear_caches()
     # one intra-op thread: the suite runs in several worker processes
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    jax.clear_caches()
 
 
 def paper_label_sets():

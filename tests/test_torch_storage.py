@@ -27,11 +27,18 @@ def _port():
     global torch, T
     import torch
     from repro_torch.index import base as T
+    # release the JAX programs compiled in this worker before this
+    # module (and, at the end, by it): each holds memory maps, and
+    # a worker that reaches vm.max_map_count segfaults in its next
+    # XLA compile (ROADMAP C1)
+    import jax
+    jax.clear_caches()
     # one intra-op thread: the suite runs in several worker processes
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    jax.clear_caches()
 
 SPECS = ("f32", "fp16", "int8", "fp16+rerank", "int8+rerank")
 _ITEM = {"f32": 4, "fp16": 2, "int8": 1}
