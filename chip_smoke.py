@@ -8,10 +8,15 @@ Phases, one JSON line each on standard output:
   1. device  — the card, its power limit; TF32 off for matmuls and cuDNN;
   2. build   — nvcc builds every kernel of ``src/repro_torch/csrc`` into
      ``build/`` (one compiler per source, all started together, while the
-     host generates the data);
+     host generates the data); ``-Xptxas -v``'s registers, spills and
+     shared memory of the redesigned B1 and B6 instances, and their
+     blocks' dynamic shared memory;
   3. kernels — each kernel against its plain torch version on the card.
      The segmented kernels: f32 / fp16 / int8, l2 / ip, tombstones on and
-     off, ragged and empty segments, a tail segment, k' > lmax.  The dense
+     off, ragged and empty segments, a tail segment, k' > lmax; the fused
+     scan also on runs of queries that share a segment beside singletons
+     and a run whose segment runs past the end of the row table, at query
+     tiles 1, 8 and 64, which must agree bitwise.  The dense
      kernels (masked_distance, filtered_topk): l2 / ip, N not a multiple
      of the row tile, ragged Q, the empty query mask, an empty filter,
      k up to the pool's 32, k > N, a tombstone bitmap, and the same query
@@ -21,7 +26,7 @@ Phases, one JSON line each on standard output:
      and bf16, minitron's GQA (24 heads over 8), MQA and MHA, Dh 128 / 64 /
      16, S 1 / 127 / 4,096 / 32,768, lengths 1, S and random, poisoned
      slots past the length (bitwise no change) and rows bitwise equal at
-     B = 1 and 128 (rtol = atol 1e-5 in f32; rtol 2^-6, two to four bf16
+     B = 1, 7 and 128 (rtol = atol 1e-5 in f32; rtol 2^-6, two to four bf16
      ulps, atol 1e-5 in bf16), and a planted fault (the plain version
      with the last of 64 splits skipped) that the check must reject; and
      the card
@@ -75,7 +80,10 @@ Phases, one JSON line each on standard output:
      version and its bound (gather_distance at one hop: [256, 16] ids;
      flash_decode at the decode_32k cell, B 128 × S 32,768 with
      minitron's heads, beside scaled_dot_product_attention; checked
-     against the plain version, planted fault rejected, as in phase 3).
+     against the plain version, planted fault rejected, as in phase 3);
+     the fused scan also at the tier with the most queries alone in
+     their segment, both tiers beside the one-query-per-block schedule
+     (bitwise equal); the card's clocks, power and temperature beside.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and the contract line
@@ -104,6 +112,11 @@ PEAK_F32_FLOPS = 67e12
 # kernel vs plain: rtol 1e-5, and an absolute floor for values near 0 (an
 # f32 sum of 128 products of unit size carries ~1e-5 absolute error)
 RTOL, ATOL = 1e-5, 1e-4
+
+# the fused scan's query tiles held against each other and the plain
+# version: one query per block, tiles of 8 (a shared run split across
+# tiles) and the largest tile
+FUSED_QTILES = (1, 8, 64)
 
 PAPER = dict(n_vectors=1_000_000, dim=128, n_labels=32, zipf_a=1.5,
              avg_label_size=3.0, elastic_bound=0.2, k=10)
@@ -247,6 +260,14 @@ def kernel_checks(dev, *, N=32768, D=128, W=4, Q=48, lmax=2048, seed=0):
             starts = rng.integers(0, R - lmax, Q).astype(np.int32)
             lens = rng.integers(0, lmax + 1, Q).astype(np.int32)
             lens[::5] = 0
+            # runs of queries that share a segment beside singletons: a
+            # run a query tile scans together, a run of 3 (scanned query
+            # by query), a run whose segment runs past the end of R (its
+            # tail lanes read row R − 1), and a tail segment
+            run = max(5, Q // 3)
+            starts[:run], lens[:run] = starts[0], lmax - 3
+            starts[run:run + 3], lens[run:run + 3] = starts[run], lens[run]
+            starts[Q - 6:Q - 1], lens[Q - 6:Q - 1] = R - 300, 700
             starts[-1], lens[-1] = R - 700, 700          # tail segment
             starts = torch.from_numpy(starts).to(dev)
             lens = torch.from_numpy(lens).to(dev)
@@ -272,18 +293,30 @@ def kernel_checks(dev, *, N=32768, D=128, W=4, Q=48, lmax=2048, seed=0):
                         ln = torch.clamp(lens, max=lm).contiguous()
                         args = (q, lq, A["ax"], A["alw"], A["axn"], rc,
                                 starts, ln, tomb, A["scales"], A["zeros"])
-                        kv, kp_ = fs.fused_scan_cuda(
-                            *args, kp=kp, lmax=lm, span=span, metric=metric,
-                            dtype=dtype)
                         pv, pp = fs.fused_scan_plain(
                             *args, kp=kp, lmax=lm, chunk=min(lm, 512),
                             qtile=16, metric=metric, dtype=dtype)
-                        errs["fused_scan"] = max(errs["fused_scan"], _compare(
-                            kv, kp_, pv, pp, integer=integer, int8=int8,
-                            tag=f"fused {dtype} {metric} tomb="
-                                f"{tomb is not None} kp={kp} span={span} "
-                                f"int={integer}"))
-                        cases += 1
+                        first = None
+                        for qtile in FUSED_QTILES:
+                            tag = (f"fused {dtype} {metric} tomb="
+                                   f"{tomb is not None} kp={kp} span={span} "
+                                   f"qtile={qtile} int={integer}")
+                            kv, kp_ = fs.fused_scan_cuda(
+                                *args, kp=kp, lmax=lm, span=span,
+                                qtile=qtile, metric=metric, dtype=dtype)
+                            errs["fused_scan"] = max(
+                                errs["fused_scan"],
+                                _compare(kv, kp_, pv, pp, integer=integer,
+                                         int8=int8, tag=tag))
+                            # every value is a function of its (query, row)
+                            # pair: the query tile changes no bit
+                            if first is None:
+                                first = (kv, kp_)
+                            elif not (torch.equal(kv, first[0])
+                                      and torch.equal(kp_, first[1])):
+                                raise AssertionError(f"{tag}: differs from "
+                                                     f"query tile 1")
+                            cases += 1
     # the whole segmented search, every storage spec, fused and unfused,
     # against the same call on host copies (the plain versions)
     rng = np.random.default_rng(seed + 1)
@@ -317,7 +350,9 @@ def kernel_checks(dev, *, N=32768, D=128, W=4, Q=48, lmax=2048, seed=0):
                 cases += 1
     return dict(cases=cases, max_abs_err=errs,
                 tolerance=f"integer data: bitwise; random data and int8: "
-                          f"rtol {RTOL} atol {ATOL}, positions up to ties")
+                          f"rtol {RTOL} atol {ATOL}, positions up to ties; "
+                          f"fused_scan at query tiles {FUSED_QTILES}: "
+                          f"bitwise equal")
 
 
 def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
@@ -578,8 +613,8 @@ def flash_decode_checks(dev, *, long_s=32_768, mid_s=4096, batch=128,
     decode_attention_ref``: f32 and bf16; minitron's GQA (24 heads over
     8), MQA and MHA; Dh 128, 64 and 16; S 1, 127, 4,096 and ``long_s``;
     lengths 1, S and random; slots past the length poisoned with ±1e4
-    (bitwise no change); the same rows bitwise equal at B = 1 and
-    B = 128; and, at ``long_s`` with lengths = S, a planted fault (the
+    (bitwise no change); the same rows bitwise equal at B = 1, 7 and
+    ``batch``; and, at ``long_s`` with lengths = S, a planted fault (the
     last of the 64 splits skipped) that the check must reject."""
     import torch
 
@@ -643,7 +678,8 @@ def flash_decode_checks(dev, *, long_s=32_768, mid_s=4096, batch=128,
         if not torch.equal(base, poisoned):
             raise AssertionError(f"flash_decode {name}: poisoned slots "
                                  f"changed the output")
-        # batch invariance: row r alone equals row r of B = 128, bitwise
+        # batch invariance: row r alone, and rows 3 .. 9 as a batch of 7,
+        # equal the same rows of B = 128, bitwise
         B = batch
         q = randn(B, KH * G, Dh, dtype=dtype)
         k = randn(B, S, KH, Dh, dtype=dtype)
@@ -658,6 +694,11 @@ def flash_decode_checks(dev, *, long_s=32_768, mid_s=4096, batch=128,
             if not torch.equal(one[0], full[r]):
                 raise AssertionError(f"flash_decode {name}: row {r} at "
                                      f"B = 1 differs from B = {B}")
+        seven = fd.flash_decode(q[3:10].contiguous(), k[3:10].contiguous(),
+                                v[3:10].contiguous(), lens[3:10].contiguous())
+        if not torch.equal(seven, full[3:10]):
+            raise AssertionError(f"flash_decode {name}: rows 3 .. 9 at B = 7 "
+                                 f"differ from B = {B}")
         err[name] = max(err[name], e, e2)
         # the planted fault: the last split skipped must fail the check
         KH, G, Dh, S = 8, 3, 128, long_s
@@ -678,8 +719,8 @@ def flash_decode_checks(dev, *, long_s=32_768, mid_s=4096, batch=128,
                 max_abs_err_by_dtype=err, tol_ratio_by_dtype=ratio,
                 planted_fault_tol_ratio_by_dtype=fault,
                 tolerance=f"(rtol, atol) {DECODE_TOL}; poisoned slots and "
-                          f"B = 1 vs B = {batch}: bitwise; a split skipped "
-                          f"at S = {long_s} rejected")
+                          f"B = 1 and 7 vs B = {batch}: bitwise; a split "
+                          f"skipped at S = {long_s} rejected")
 
 
 # ---------------------------------------------------------------------------
@@ -1398,23 +1439,29 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def top_tier(eng, qv, qls):
-    """The main path's largest span tier of the workload batch, as the
-    engine hands it to ``ops.segmented_topk``."""
+def arena_tiers(eng, qv, qls):
+    """The workload batch's span tiers as the engine hands them to
+    ``ops.segmented_topk`` (queries sorted by segment start), each with
+    ``alone``: how many of its queries share their segment with no other
+    query of the tier."""
     import torch
 
     from repro_torch.core import encode_many, masks_to_int32_words
 
     qw = masks_to_int32_words(encode_many(qls))
     routed = eng.route_many(qls)
-    *_, last = eng.arena_tier_batches(qv, qw, routed)
-    _, qp, lp, starts, lens, lmax, g = last
     dev = eng.device
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return dict(q=t(qp), lq=t(lp), starts=t(starts), lens=t(lens), lmax=lmax,
-                queries=g)
+    out = []
+    for _, qp, lp, starts, lens, lmax, g in eng.arena_tier_batches(
+            qv, qw, routed):
+        seg = list(zip(starts[:g].tolist(), lens[:g].tolist()))
+        alone = sum(seg.count(x) == 1 for x in seg)
+        out.append(dict(q=t(qp), lq=t(lp), starts=t(starts), lens=t(lens),
+                        lmax=lmax, queries=g, alone=alone))
+    return out
 
 
 def _segment_work(T, arena, rc):
@@ -1451,43 +1498,76 @@ def time_kernels(engines, workload, clock, counts_at_main, errs):
     qv, qls = workload
     eng = engines["f32/fused=auto"]
     arena, rc = eng.arena, torch.from_numpy(eng.rows_concat).to(eng.device)
-    T = top_tier(eng, qv, qls)
+    tiers = arena_tiers(eng, qv, qls)
+    T = tiers[-1]
     Q, D = T["q"].shape
     W = T["lq"].shape[1]
     k = PAPER["k"]
-    n_pos, n_seen, n_pass, pairs = _segment_work(T, arena, rc)
     out = []
 
-    # fused scan at the top tier, tiles from the Hopper tile model
-    tc = roofline.fused_scan_tiles(D, T["lmax"], "f32", Q, backend="cuda",
-                                   device=eng.device)
-    args = (T["q"], T["lq"], arena.vectors, arena.label_words, arena.norms,
-            rc, T["starts"], T["lens"], None, None, None)
-    kw = dict(kp=k, lmax=T["lmax"], metric="l2", dtype="f32")
-    plain_chunk = min(T["lmax"], 16384)
-    plain_qtile = max(1, min(Q, (1 << 29) // (plain_chunk * D * 4)))
-    kv, kp_ = fs.fused_scan_cuda(*args, span=tc.rows_per_chunk, **kw)
-    pv, pp = fs.fused_scan_plain(*args, chunk=plain_chunk, qtile=plain_qtile,
-                                 **kw)
-    err = _compare(kv, kp_, pv, pp, integer=False, int8=False,
-                   tag="fused_scan at the top tier")
-    ms = clock.ms(lambda: fs.fused_scan_cuda(*args, span=tc.rows_per_chunk,
-                                             **kw))
-    plain_ms = clock.ms(lambda: fs.fused_scan_plain(
-        *args, chunk=plain_chunk, qtile=plain_qtile, **kw), max_reps=3)
-    nbytes = (Q * D * 4 + Q * W * 4 + 8 * Q + 4 * n_pos + 4 * W * n_seen
-              + (4 * D + 4) * n_pass + Q * k * 8)
-    bound_ms, bound_by = _bound(nbytes, pairs * (2 * D + 3))
+    def fused_at(T, plain_reps):
+        """B1 on one tier: tiles from the Hopper tile model, held against
+        its plain version, timed beside the one-query-per-block schedule
+        (query tile 1) and its bound."""
+        Q = T["q"].shape[0]
+        n_pos, n_seen, n_pass, pairs = _segment_work(T, arena, rc)
+        tc = roofline.fused_scan_tiles(D, T["lmax"], "f32", Q,
+                                       backend="cuda", device=eng.device)
+        one = roofline.fused_scan_tiles(D, T["lmax"], "f32", Q,
+                                        backend="cuda", device=eng.device,
+                                        max_qtile=1)
+        args = (T["q"], T["lq"], arena.vectors, arena.label_words,
+                arena.norms, rc, T["starts"], T["lens"], None, None, None)
+        kw = dict(kp=k, lmax=T["lmax"], metric="l2", dtype="f32")
+        plain_chunk = min(T["lmax"], 16384)
+        plain_qtile = max(1, min(Q, (1 << 29) // (plain_chunk * D * 4)))
+
+        def kernel(t=tc):
+            return fs.fused_scan_cuda(*args, span=t.rows_per_chunk,
+                                      qtile=t.queries_per_tile, **kw)
+        kv, kp_ = kernel()
+        pv, pp = fs.fused_scan_plain(*args, chunk=plain_chunk,
+                                     qtile=plain_qtile, **kw)
+        err = _compare(kv, kp_, pv, pp, integer=False, int8=False,
+                       tag=f"fused_scan at lmax {T['lmax']}")
+        ov, op = kernel(one)
+        if not (torch.equal(ov, kv) and torch.equal(op, kp_)):
+            raise AssertionError(f"fused_scan at lmax {T['lmax']}: query "
+                                 f"tile {tc.queries_per_tile} differs from 1")
+        ms = clock.ms(kernel)
+        ms_one = clock.ms(lambda: kernel(one))
+        plain_ms = clock.ms(lambda: fs.fused_scan_plain(
+            *args, chunk=plain_chunk, qtile=plain_qtile, **kw),
+            max_reps=plain_reps)
+        nbytes = (Q * D * 4 + Q * W * 4 + 8 * Q + 4 * n_pos + 4 * W * n_seen
+                  + (4 * D + 4) * n_pass + Q * k * 8)
+        bound_ms, bound_by = _bound(nbytes, pairs * (2 * D + 3))
+        shape = dict(queries=T["queries"], q_bucket=Q, lmax=T["lmax"],
+                     queries_alone_in_their_run=T["alone"],
+                     queries_per_tile=tc.queries_per_tile,
+                     span_per_block=tc.rows_per_chunk, kp=k, dim=D,
+                     pairs_passing=pairs, rows_touched=n_seen,
+                     ms_query_tile_1=ms_one,
+                     span_per_block_query_tile_1=one.rows_per_chunk)
+        return err, ms, plain_ms, bound_ms, bound_by, shape
+
+    # fused scan at the top tier and at the tier with the most queries
+    # alone in their run (report only)
+    err, ms, plain_ms, bound_ms, bound_by, shape = fused_at(T, 3)
+    small = max(tiers[:-1] or tiers, key=lambda x: (x["alone"], x["lmax"]))
+    s_err, s_ms, s_plain, s_bound, s_by, s_shape = fused_at(small, 5)
+    s_shape.update(ms=s_ms, plain_ms=s_plain, bound_ms=s_bound,
+                   bound_by=s_by, max_abs_err=s_err)
+    emit("fused_scan_small_tier", **s_shape)
+    shape["small_tier"] = s_shape
     out.append(dict(
         name="fused_scan", route="cuda",
         source="src/repro_torch/csrc/fused_scan.cu",
         replaces="src/repro/kernels/fused_scan.py:167",
         launches=counts_at_main["fused_scan"],
-        max_abs_err=max(err, errs["fused_scan"]), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        shape=dict(queries=T["queries"], q_bucket=Q, lmax=T["lmax"],
-                   span_per_block=tc.rows_per_chunk, kp=k, dim=D,
-                   pairs_passing=pairs, rows_touched=n_seen)))
+        max_abs_err=max(err, s_err, errs["fused_scan"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, shape=shape))
 
     # gather distance: the unfused executor's first chunk at the top tier
     chunk = min(ops.SEG_CHUNK_CUDA, T["lmax"])
@@ -1752,11 +1832,80 @@ def time_decode_kernel(dev, clock, launches, errs, seed=12):
 # ---------------------------------------------------------------------------
 
 
-def nvidia_smi() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+# the kernel instances whose -Xptxas -v figures phase 2 reports by name:
+# B6 as minitron_4b runs it (bf16, Dh 128, G 3 -> MAXG 4), B1's query-tile
+# kernel and its one-query kernel for f32 / l2 without tombstones
+PTXAS_INSTANCES = {
+    "flash_decode_partial<bf16, 128, 4>": (
+        "flash_decode", "flash_decode_partialI13__nv_bfloat16Li128ELi4E"),
+    "fused_scan_tile<f32, l2, no tomb, k' <= 32>": (
+        "fused_scan", "fused_scan_tileILi0ELb1ELb0ELi1E"),
+    "fused_scan_tile<f32, l2, no tomb, k' <= 64>": (
+        "fused_scan", "fused_scan_tileILi0ELb1ELb0ELi2E"),
+    "fused_scan_partial<f32, l2, no tomb>": (
+        "fused_scan", "fused_scan_partialILi0ELb1ELb0E"),
+}
+
+
+def ptxas_figures(build_dir) -> dict:
+    """Registers, spills and shared memory of ``PTXAS_INSTANCES`` from the
+    compiler logs (``-Xptxas -v``) that the build keeps."""
+    import re
+    out = {}
+    for label, (source, needle) in PTXAS_INSTANCES.items():
+        fn, fig = None, {}
+        for line in (build_dir / f"{source}.log").read_text().splitlines():
+            m = re.search(r"(?:entry function|Function properties for) "
+                          r"'?([\w.$]+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            if fn is None or needle not in fn:
+                continue
+            for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill st"),
+                             ("spill_load_bytes", r"(\d+) bytes spill lo"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("static_smem_bytes", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    fig[key] = int(m.group(1))
+        out[label] = fig or "not found in the log"
+    return out
+
+
+def dynamic_smem() -> dict:
+    """Dynamic shared memory of the redesigned kernels' blocks, as the
+    compiled libraries size them; the tile model's copy of the fused
+    scan's layout must agree."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import fused_scan as fs
+    lib = cuda_build.load("fused_scan", fs._SIGNATURES)
+    out = {}
+    for dtype, code in fs._DTYPES.items():
+        for kp, bq in ((10, 64), (40, 64), (10, 1)):
+            got = lib.fused_scan_smem_bytes(code, 128, kp, bq)
+            if got != fs.block_smem_bytes(128, kp, bq, dtype):
+                raise AssertionError(
+                    f"fused_scan.block_smem_bytes(128, {kp}, {bq}, {dtype}) "
+                    f"is {fs.block_smem_bytes(128, kp, bq, dtype)}; the "
+                    f"kernel's layout takes {got}")
+            out[f"fused_scan {dtype} D 128 k' {kp} query tile {bq}"] = got
+    out["flash_decode_partial<bf16, 128, 4>"] = cuda_build.load(
+        "flash_decode", fd._SIGNATURES).flash_decode_smem_bytes(1, 128, 3)
+    return out
+
+
+def nvidia_smi(query: str = "name,power.limit") -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+# the card's state beside the kernel times (phase 5)
+CARD_STATE = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
 
 
 def main() -> int:
@@ -1802,7 +1951,9 @@ def main() -> int:
              ptxas=sorted({line.split(":", 1)[1].strip()
                            for name in cuda_build.SOURCES
                            for line in (cuda_build.BUILD_DIR / f"{name}.log")
-                           .read_text().splitlines() if "Used" in line}))
+                           .read_text().splitlines() if "Used" in line}),
+             ptxas_by_kernel=ptxas_figures(cuda_build.BUILD_DIR),
+             dynamic_smem_bytes=dynamic_smem())
 
     t0 = time.perf_counter()
     checks = kernel_checks(dev)
@@ -1879,6 +2030,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    state_before = nvidia_smi(CARD_STATE)
     kernels = time_kernels(engines, (ctx["qv"], ctx["qls"]), clock, launches,
                            checks["max_abs_err"])
     kernels += time_dense_kernels(ivf_eng, flat, ctx, clock, launches,
@@ -1889,7 +2041,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += time_decode_kernel(dev, clock, launches,
                                   checks["max_abs_err"])
-    emit("kernel_times", seconds=time.perf_counter() - t0)
+    emit("kernel_times", seconds=time.perf_counter() - t0,
+         card_state_query=CARD_STATE, card_state_before=state_before,
+         card_state_after=nvidia_smi(CARD_STATE))
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(smi, flush=True)
     emit("total", seconds=time.perf_counter() - t_all)

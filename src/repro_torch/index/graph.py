@@ -321,14 +321,14 @@ def reverse_edges_compiled(x: np.ndarray, adj: np.ndarray, deg: np.ndarray,
 
 
 def build_vamana(x: np.ndarray, M: int = 16, n_cand: int = 64,
-                 alpha: float = 1.2, seed: int = 0, *, device="cpu",
+                 alpha: float = 1.2, seed: int = 0, *, device="cuda",
                  kernel_backend: str | None = None,
                  timings: dict | None = None) -> tuple[np.ndarray, int]:
     """Build a degree-≤M navigable graph: (adj [N, M] int32, medoid).
-    ``device="cpu"`` runs :func:`build_vamana_plain`; a CUDA device the
-    card build (module docstring), whose reverse pass is compiled host
-    code — without it this raises.  ``timings`` (optional) receives
-    seconds per stage."""
+    A CUDA device (the default: without a card this raises) runs the card
+    build (module docstring), whose reverse pass is compiled host code;
+    ``device="cpu"`` runs :func:`build_vamana_plain`.  ``timings``
+    (optional) receives seconds per stage."""
     dev = resolve_device(device)
     x = np.ascontiguousarray(x, dtype=np.float32)
     if dev.type == "cpu":

@@ -26,7 +26,8 @@ from . import cuda_build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I]
-               + [_I] * 7 + [ctypes.c_float, _P]}
+               + [_I] * 7 + [ctypes.c_float, _P],
+               "flash_decode_smem_bytes": [_I, _I, _I]}
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16

@@ -26,6 +26,12 @@ def dev():
 
 
 def test_kernels_and_engine_on_the_card(dev):
+    """Every segmented kernel against its plain version (chip_smoke's
+    phase-3 checks at a small size: B1 on runs of queries sharing a
+    segment beside singletons, a run past the end of the row table,
+    tombstones, f32 / fp16 / int8, l2 / ip, k' 10 and 40, at query tiles
+    1, 8 and 64, bitwise equal to each other), then the flat engine on the
+    card: batched ≡ looped, fused and unfused."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -150,9 +156,10 @@ def test_graph_kernel_and_build_on_the_card(dev):
 
 def test_flash_decode_and_batched_decoder_on_the_card(dev):
     """B6 against its plain version (chip_smoke's phase-3 checks at a
-    smaller S and batch), then reduced minitron_4b served by a
-    BatchedDecoder on the card: batched ≡ sequential bitwise, the kernel
-    launched once per layer per decode step."""
+    smaller S: rows bitwise equal at B 1, 7 and 128, a split left out
+    rejected), then reduced minitron_4b served by a BatchedDecoder on the
+    card: batched ≡ sequential bitwise, the kernel launched once per layer
+    per decode step."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -160,7 +167,7 @@ def test_flash_decode_and_batched_decoder_on_the_card(dev):
     import torch
 
     out = chip_smoke.flash_decode_checks(dev, long_s=8192, mid_s=1024,
-                                         batch=32)
+                                         batch=128)
     assert out["cases"] > 0
 
     from repro_torch import arch as A

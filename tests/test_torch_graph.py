@@ -146,7 +146,7 @@ def test_plain_build_matches_reference_and_card_stages_match_plain():
     stages on CPU tensors — candidate lists through ``masked_distance``,
     the vectorised forward prune — equal the plain stages, the forward
     prune also on random data (its distances are numpy's pairwise sums);
-    n = 1 and n_cand ≥ n."""
+    n = 1 and n_cand ≥ n; and without a card the default device raises."""
     x, near = tie_free_points(400, 16, 16, 50.0, seed=3)
     assert (np.diff(near, axis=1) > 0).all()
     jadj, jmed = jgraph.build_vamana(x, M=8, n_cand=16)
@@ -174,6 +174,11 @@ def test_plain_build_matches_reference_and_card_stages_match_plain():
         pa, pm = pgraph.build_vamana(xs, M=3, n_cand=16, device="cpu")
         np.testing.assert_array_equal(pa, ja)
         assert pm == jm
+    # like every entry point of the port, the build runs on the card unless
+    # the caller asks for the CPU: without a card the default raises
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pgraph.build_vamana(x, M=8, n_cand=16)
 
 
 def integer_graph_case(N=500, D=10, Q=40, seed=3):

@@ -286,6 +286,7 @@ def test_fused_tail_segment_follows_the_oracle():
 H100 = types.SimpleNamespace(
     name="NVIDIA H100 80GB HBM3", multi_processor_count=132,
     max_threads_per_multi_processor=2048, shared_memory_per_block=49152,
+    shared_memory_per_block_optin=232448,
     shared_memory_per_multiprocessor=233472)
 
 
@@ -308,14 +309,42 @@ def test_tile_model_is_deterministic_and_fills_the_card():
                                       props=H100)
     big = roofline.fused_scan_tiles(128, 2**20, "f32", 256, backend="cuda",
                                     props=H100)
-    assert small.queries_per_tile == big.queries_per_tile == 1
-    # few queries over a huge span: split finely; many: coarser splits
+    one = roofline.fused_scan_tiles(128, 2**20, "f32", 256, backend="cuda",
+                                    props=H100, max_qtile=1)
+    # few queries over a huge span: one query per block, split finely;
+    # the top tier (256 queries): the largest query tile, coarser splits
+    assert small.queries_per_tile == one.queries_per_tile == 1
+    assert big.queries_per_tile == tfs.TILE_QUERIES
     assert small.rows_per_chunk == roofline.MIN_ROWS_PER_BLOCK
     assert big.rows_per_chunk > small.rows_per_chunk
-    blocks = 256 * (2**20 // big.rows_per_chunk)
-    assert blocks >= roofline.WAVES * 132 * 8 // 2
+    assert big.rows_per_chunk >= roofline.MIN_ROWS_PER_TILE
+    # the chosen blocks fill WAVES waves at the blocks an SM holds: the
+    # tile kernel's launch bound, the one-query kernel's threads
+    tiles = 256 // big.queries_per_tile * (2**20 // big.rows_per_chunk)
+    assert tiles >= roofline.WAVES * 132 * tfs.TILE_BLOCKS_PER_SM
+    assert 256 * (2**20 // one.rows_per_chunk) >= roofline.WAVES * 132 * 8
+    # a tile is taken only where it leaves as many blocks as one query per
+    # block needs (short spans keep one query per block), and its block
+    # fits the opt-in shared memory
+    assert roofline.fused_scan_tiles(128, 1024, "f32", 256, backend="cuda",
+                                     props=H100).queries_per_tile == 1
+    mid = roofline.fused_scan_tiles(128, 2**18, "f32", 128, backend="cuda",
+                                    props=H100)
+    assert 1 < mid.queries_per_tile < tfs.TILE_QUERIES
+    assert (128 // mid.queries_per_tile
+            * (2**18 // roofline.MIN_ROWS_PER_TILE)
+            >= roofline.WAVES * 132 * 8)
+    for d, kp in ((128, 10), (128, 64), (768, 40)):
+        assert tfs.block_smem_bytes(d, kp, 64) > 48 * 1024
+        assert tfs.block_smem_bytes(d, kp, 64) \
+            <= H100.shared_memory_per_block_optin
+        assert tfs.block_smem_bytes(d, kp) <= tfs.block_smem_bytes(d, kp, 64)
+    narrow = types.SimpleNamespace(**dict(
+        vars(H100), shared_memory_per_block_optin=48 * 1024))
+    assert roofline.fused_scan_tiles(128, 2**20, "f32", 256, backend="cuda",
+                                     props=narrow).queries_per_tile == 1
     tiny = types.SimpleNamespace(**dict(vars(H100),
-                                        shared_memory_per_block=1024))
+                                        shared_memory_per_block_optin=1024))
     with pytest.raises(ValueError):
         roofline.fused_scan_tiles(128, 1024, "f32", 4, backend="cuda",
                                   props=tiny)
