@@ -9,17 +9,26 @@ Phases, one JSON line each on standard output:
   2. build   — nvcc builds every kernel of ``src/repro_torch/csrc`` into
      ``build/`` (one compiler per source, all started together, while the
      host generates the data); ``-Xptxas -v``'s registers, spills and
-     shared memory of the redesigned B1 and B6 instances, and their
-     blocks' dynamic shared memory;
+     shared memory of the redesigned B1, B2 (tile), B3, B4 and B6
+     instances, and their blocks' dynamic shared memory (B1's and B2's
+     held against their Python mirrors);
   3. kernels — each kernel against its plain torch version on the card.
      The segmented kernels: f32 / fp16 / int8, l2 / ip, tombstones on and
      off, ragged and empty segments, a tail segment, k' > lmax; the fused
      scan also on runs of queries that share a segment beside singletons
      and a run whose segment runs past the end of the row table, at query
-     tiles 1, 8 and 64, which must agree bitwise.  The dense
+     tiles 1, 8 and 64, which must agree bitwise; the segmented gather
+     also on runs of queries that list one window (a run of 70 across the
+     64-query tile, ragged lens, runs of 9, 3 and 2) beside singletons, its
+     tile schedule at 64, 16 and 12 queries a block (runs cut at the
+     blocks' edges) bitwise its per-pair schedule (``max_qtile=1``) and
+     both bitwise the same sum taken in order by torch.  The dense
      kernels (masked_distance, filtered_topk): l2 / ip, N not a multiple
-     of the row tile, ragged Q, the empty query mask, an empty filter,
-     k up to the pool's 32, k > N, a tombstone bitmap, and the same query
+     of the row tile, ragged Q, masked_distance at Q 1, 16, 17, 64, 65,
+     128 and 256 (its three instances' edges), D 127 and operands at an
+     unaligned base (the tile's 4-byte copies), the empty query mask, an empty
+     filter, k up to the pool's 32, k > N, a tombstone bitmap,
+     filtered_topk's values bitwise masked_distance's, and the same query
      rows bitwise equal at buckets 1, 8 and 256.  The graph's per-hop
      gather_distance: l2 / ip, ids < 0, D = 128 and 100, Q = 1 and
      batches, buckets 1 / 8 / 256; the decode attention flash_decode: f32
@@ -83,7 +92,14 @@ Phases, one JSON line each on standard output:
      against the plain version, planted fault rejected, as in phase 3);
      the fused scan also at the tier with the most queries alone in
      their segment, both tiers beside the one-query-per-block schedule
-     (bitwise equal); the card's clocks, power and temperature beside.
+     (bitwise equal); the segmented gather at the top tier's first chunk
+     and at the (Q, L) one unfused f32 batch launches most often, each
+     beside ``max_qtile=1`` (bitwise equal), a sweep of run lengths 1–64
+     (tile against per-pair), and every (Q, L) launch of one unfused f32
+     and one int8+rerank batch in both schedules, summed over the batch;
+     masked_distance also at the (Q, N) one
+     ivf batch launches most often; the card's clocks, power and
+     temperature after each.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and the contract line
@@ -249,8 +265,9 @@ def kernel_checks(dev, *, N=32768, D=128, W=4, Q=48, lmax=2048, seed=0):
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(seed)
-    errs = {"fused_scan": 0.0, "segmented_gather_distance": 0.0}
-    cases = 0
+    runs = gather_run_checks(dev, N=N, D=D, W=W)
+    errs = {"fused_scan": 0.0, "segmented_gather_distance": runs["max_abs_err"]}
+    cases = runs["cases"]
     for integer in (True, False):
         for dtype in ("f32", "fp16", "int8"):
             A = _arena(dtype, N, D, W, integer, rng, dev)
@@ -348,21 +365,128 @@ def kernel_checks(dev, *, N=32768, D=128, W=4, Q=48, lmax=2048, seed=0):
                 if not torch.equal(got[2].cpu()[same], want[2][same]):
                     raise AssertionError(f"{tag}: ids differ")
                 cases += 1
-    return dict(cases=cases, max_abs_err=errs,
+    return dict(cases=cases, gather_run_cases=runs["cases"],
+                max_abs_err=errs,
                 tolerance=f"integer data: bitwise; random data and int8: "
                           f"rtol {RTOL} atol {ATOL}, positions up to ties; "
-                          f"fused_scan at query tiles {FUSED_QTILES}: "
-                          f"bitwise equal")
+                          f"fused_scan at query tiles {FUSED_QTILES} and "
+                          f"segmented_gather_distance at max_qtile "
+                          f"{GATHER_QTILES}: bitwise equal")
+
+
+# B2's schedules held against each other: the model's tile (64 queries a
+# block), tiles of 16 and 12 (the shared runs cut at other block edges,
+# into tiled pieces of more than TILE_MIN_RUN and per-pair ones) and one
+# thread per pair
+GATHER_QTILES = (None, 16, 12, 1)
+
+
+def _gather_in_order(q, lq, x, lxw, gids, lens, *, metric, scales=None,
+                     zeros=None):
+    """B2's function summed as its kernel sums it: in order over D, each
+    product, difference and sum rounded on its own (one torch operation
+    each, never fused), int8 codes dequantized as zeros + scales·codes.
+    Both of the kernel's schedules must agree with it bitwise on any
+    data."""
+    import torch
+    g = gids.long()
+    xr = x[g].float()
+    if x.dtype == torch.uint8:
+        xr = zeros[g][..., None] + scales[g][..., None] * xr
+    acc = torch.zeros(gids.shape, dtype=torch.float32, device=q.device)
+    for e in range(q.shape[1]):
+        if metric == "ip":
+            acc = acc + xr[..., e] * q[:, None, e]
+        else:
+            t = q[:, None, e] - xr[..., e]
+            acc = acc + t * t
+    ok = torch.all((lq[:, None, :] & lxw[g]) == lq[:, None, :], dim=-1)
+    ok &= (torch.arange(gids.shape[1], device=q.device)[None, :]
+           < lens[:, None])
+    return torch.where(ok, -acc if metric == "ip" else acc,
+                       torch.full_like(acc, float("inf")))
+
+
+def gather_run_checks(dev, *, N=32768, D=128, W=4, Q=96, L=20_000,
+                      seed=3):
+    """B2 on windows that runs of queries share, beside singletons and
+    scattered per-query lists (as the +rerank shortlists are): f32 / fp16
+    / int8, l2 / ip, integer and random data, a run of 70 across the
+    64-query tile with ragged lens (one 0 inside it), runs of 9, 3 and 2
+    (the tile takes runs of more than ``TILE_MIN_RUN``, 8), L not a
+    multiple of the 128-column window and long enough that the tile
+    grid fills the card (else the model takes one thread a pair), at
+    ``GATHER_QTILES`` queries a block, so the runs are cut at different
+    block edges into tiled pieces and per-pair ones (at 12 the run of 9
+    becomes a 2 and a 7, both per pair).  Every schedule bitwise
+    equal to ``max_qtile=1`` and to the in-order sum; against the plain
+    version, phase 3's tolerance, except int8 on integer data: its
+    dequantized rows are not integers and its ip sums cancel terms of
+    ~10^3 to values near 0, where the two summation orders differ by more
+    than the absolute floor (the in-order sum holds it bitwise instead)."""
+    import torch
+
+    from repro_torch.kernels import gather_distance as gd
+
+    rng = np.random.default_rng(seed)
+    err, cases = 0.0, 0
+    for integer in (True, False):
+        for dtype in ("f32", "fp16", "int8"):
+            A = _arena(dtype, N, D, W, integer, rng, dev)
+            q, lq = _queries(Q, D, W, integer, rng, dev)
+            g = rng.integers(0, N, (Q, L)).astype(np.int32)
+            g[1:70] = g[0]
+            g[71:79] = g[70]
+            g[80:82] = g[79]
+            g[83] = g[82]
+            lens = np.full(Q, L, np.int32)
+            lens[5:40:7] = rng.integers(1, L, 5)
+            lens[20], lens[71], lens[80], lens[-1] = 0, 129, 300, 7
+            gids = torch.from_numpy(g).to(dev)
+            lens = torch.from_numpy(lens).to(dev)
+            for metric in ("l2", "ip"):
+                args = (q, lq, A["ax"], A["alw"], gids, lens)
+                kw = dict(metric=metric, scales=A["scales"], zeros=A["zeros"])
+                one = gd.segmented_gather_distance(*args, **kw, max_qtile=1)
+                if not torch.equal(one, _gather_in_order(*args, **kw)):
+                    raise AssertionError(f"gather runs {dtype} {metric} "
+                                         f"int={integer}: the per-pair "
+                                         f"schedule is not the in-order sum")
+                if not (integer and dtype == "int8"):
+                    err = max(err, _compare(
+                        one, None, gd.segmented_gather_distance_plain(
+                            *args, **kw), None, integer=integer,
+                        int8=dtype == "int8",
+                        tag=f"gather runs {dtype} {metric} int={integer}"))
+                for mq in GATHER_QTILES:
+                    if mq != 1 and dtype != "int8" and gd.gather_qtile(
+                            Q, L, storage=dtype, sms=gd._sms(dev),
+                            max_qtile=mq) == 1:
+                        raise AssertionError(f"gather runs at max_qtile="
+                                             f"{mq}: the model takes one "
+                                             f"thread a pair; raise L")
+                    kv = gd.segmented_gather_distance(*args, **kw,
+                                                      max_qtile=mq)
+                    if not torch.equal(kv, one):
+                        raise AssertionError(
+                            f"gather runs {dtype} {metric} int={integer} "
+                            f"max_qtile={mq}: differs from the per-pair "
+                            f"schedule")
+                    cases += 1
+    return dict(cases=cases, max_abs_err=err)
 
 
 def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
     """The dense kernels (masked_distance, filtered_topk) against their
     plain versions: l2 / ip, N not a multiple of the row tile, ragged Q
-    on both query tiles (5 and 37 queries), the empty query mask, an empty
-    filter (a label no row holds), k = 1, 10 and 32 (the pool's capacity),
-    k > N, a tombstone bitmap (``ops.filtered_topk``'s composed path);
-    filtered_topk's values bitwise those of masked_distance; and the same
-    query rows bitwise equal at buckets 1, 8 and 256."""
+    on both of B3's query tiles (5 and 37 queries), the empty query mask,
+    an empty filter (a label no row holds), k = 1, 10 and 32 (the pool's
+    capacity), k > N, a tombstone bitmap (``ops.filtered_topk``'s composed
+    path); masked_distance at Q 1, 16, 17, 64, 65, 128 and 256 (each of
+    its instances and their edges), and at D 127 and on operands at an
+    unaligned base (the tile's 4-byte copies); filtered_topk's values
+    bitwise those of masked_distance; and the same query rows bitwise
+    equal at buckets 1, 8 and 256."""
     import torch
 
     from repro_torch.kernels import filtered_topk as ft
@@ -426,6 +550,71 @@ def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
                              integer=integer, int8=False,
                              tag=f"filtered_topk tomb {tag}")
                     cases += 2
+    # every instance and its edges: Q 1 and 16 (16 × 128), 17 and 64
+    # (64 × 128), 65, 128 and 256 (128 × 64), N not a multiple of the row
+    # tile; B3 at the same Q holds B4's values bitwise
+    for integer in (True, False):
+        x = rng.standard_normal((N, D)).astype(np.float32)
+        if integer:
+            x = np.rint(x * 4).astype(np.float32)
+        x = t(x)
+        lx = t((rng.random((N, W)) < 0.7).astype(np.int32))
+        for Q in (1, 16, 17, 64, 65, 128, 256):
+            q, lq = _queries(Q, D, W, integer, rng, dev)
+            for metric in ("l2", "ip"):
+                tag = f"masked_distance Q={Q} {metric} int={integer}"
+                kd = md.masked_distance(q, x, lq, lx, metric=metric)
+                errs["masked_distance"] = max(
+                    errs["masked_distance"],
+                    _compare(kd, None,
+                             md.masked_distance_plain(q, x, lq, lx,
+                                                      metric=metric),
+                             None, integer=integer, int8=False, tag=tag))
+                kv, ki = ft.filtered_topk(q, x, lq, lx, k=10, metric=metric)
+                fin = torch.isfinite(kv)
+                at = torch.gather(kd, 1, torch.clamp(ki, max=N - 1).long())
+                if not torch.equal(at[fin], kv[fin]):
+                    raise AssertionError(f"{tag}: filtered_topk disagrees "
+                                         f"with masked_distance")
+                cases += 1
+    # the tile's 4-byte copies: D 127 (D % 4 != 0), and D 128 in
+    # contiguous views one float into their buffers (bases not 16-byte
+    # aligned), at Q 1, 17 and 65 (one query tile of each instance)
+    def shifted(a, off):
+        v = torch.empty(a.numel() + off, dtype=a.dtype, device=dev)[off:]
+        return v.view(a.shape).copy_(a)
+    for integer in (True, False):
+        for d_, off in ((127, 0), (D, 1)):
+            x = rng.standard_normal((N, d_)).astype(np.float32)
+            if integer:
+                x = np.rint(x * 4).astype(np.float32)
+            x = shifted(t(x), off)
+            lx = t((rng.random((N, W)) < 0.7).astype(np.int32))
+            qa, lqa = _queries(65, d_, W, integer, rng, dev)
+            qa = shifted(qa, off)
+            if off and (x.data_ptr() % 16 == 0 or qa.data_ptr() % 16 == 0):
+                raise AssertionError("the shifted operands are aligned")
+            for Q in (1, 17, 65):
+                q, lq = qa[:Q], lqa[:Q]
+                for metric in ("l2", "ip"):
+                    tag = (f"masked_distance D={d_} offset={off} Q={Q} "
+                           f"{metric} int={integer}")
+                    kd = md.masked_distance(q, x, lq, lx, metric=metric)
+                    errs["masked_distance"] = max(
+                        errs["masked_distance"],
+                        _compare(kd, None,
+                                 md.masked_distance_plain(q, x, lq, lx,
+                                                          metric=metric),
+                                 None, integer=integer, int8=False, tag=tag))
+                    kv, ki = ft.filtered_topk(q, x, lq, lx, k=10,
+                                              metric=metric)
+                    fin = torch.isfinite(kv)
+                    at = torch.gather(kd, 1,
+                                      torch.clamp(ki, max=N - 1).long())
+                    if not torch.equal(at[fin], kv[fin]):
+                        raise AssertionError(f"{tag}: filtered_topk "
+                                             f"disagrees with masked_distance")
+                    cases += 1
     # batch independence: bucket 1, 8 and 256 rows bitwise equal
     x = t(rng.standard_normal((N, D)).astype(np.float32))
     lx = t((rng.random((N, W)) < 0.7).astype(np.int32))
@@ -1569,41 +1758,232 @@ def time_kernels(engines, workload, clock, counts_at_main, errs):
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, shape=shape))
 
-    # gather distance: the unfused executor's first chunk at the top tier
+    # gather distance: the unfused executor's first chunk at the top tier,
+    # and the shape the unfused f32 engine launches most often in a batch,
+    # each beside one thread per pair (max_qtile=1)
     chunk = min(ops.SEG_CHUNK_CUDA, T["lmax"])
     pos = torch.arange(chunk, dtype=torch.int32, device=eng.device)
     gid, valid = ref.segment_gids(rc, T["starts"], T["lens"], pos)
-    gids = gid.to(torch.int32).contiguous()
-    glens = torch.sum(valid, dim=1).to(torch.int32)
-    gargs = (T["q"], T["lq"], arena.vectors, arena.label_words, gids, glens)
-    kv = gd.segmented_gather_distance(*gargs)
-    pv = gd.segmented_gather_distance_plain(*gargs)
-    err = _compare(kv, None, pv, None, integer=False, int8=False,
-                   tag="gather at the top tier")
-    ms = clock.ms(lambda: gd.segmented_gather_distance(*gargs))
-    plain_ms = clock.ms(lambda: gd.segmented_gather_distance_plain(*gargs),
-                        max_reps=5)
-    live = valid.reshape(-1)
-    flat = gid.reshape(-1)[live]
-    passing = torch.all((T["lq"][:, None, :] & arena.label_words[gid])
-                        == T["lq"][:, None, :], dim=-1) & valid
-    rows_seen = int(torch.unique(flat).numel())
-    rows_pass = int(torch.unique(gid[passing]).numel())
-    gpairs = int(passing.sum())
-    nbytes = (Q * D * 4 + Q * W * 4 + 4 * Q + 4 * gids.numel()
-              + 4 * W * rows_seen + 4 * D * rows_pass + 4 * kv.numel())
-    bound_ms, bound_by = _bound(nbytes, gpairs * 3 * D)
+    gargs = (T["q"], T["lq"], arena.vectors, arena.label_words,
+             gid.to(torch.int32).contiguous(),
+             torch.sum(valid, dim=1).to(torch.int32))
+    top = _time_gather(clock, gargs, {}, "gather at the top tier")
+    top.update(queries=T["queries"], lmax=T["lmax"])
+    with ShapeLog(ops, "segmented_gather_distance", _gather_key) as log:
+        engines["f32/fused=False"].search_batched(qv, qls, k)
+    key, n_key = log.most()
+    args, kw = log.first[key]
+    most = _time_gather(clock, args, kw, f"gather at {key}")
+    most.pop("args")
+    most.update(launches_in_one_batch=n_key, shapes_in_one_batch={
+        str(k_): n for k_, n in sorted(log.counts.items())})
+    emit("gather_most_launched_shape", **most)
+    sweep = gather_run_sweep(clock, top.pop("args"))
+    emit("gather_run_sweep", **sweep)
+    batches = gather_batch_schedules(clock, engines, qv, qls, k)
+    emit("gather_batch_schedules", **batches)
+    err = max(top.pop("max_abs_err"), most.pop("max_abs_err"))
     out.append(dict(
         name="segmented_gather_distance", route="cuda",
         source="src/repro_torch/csrc/gather_distance.cu",
         replaces="src/repro/kernels/gather_distance.py:95",
         launches=counts_at_main["segmented_gather_distance"],
-        max_abs_err=max(err, errs["segmented_gather_distance"]), ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        max_abs_err=max(err, errs["segmented_gather_distance"]),
+        ms=top.pop("ms"), plain_ms=top.pop("plain_ms"),
+        bound_ms=top.pop("bound_ms"), bound_by=top.pop("bound_by"),
         library_ms=None,
-        shape=dict(queries=T["queries"], q_bucket=Q, columns=chunk, dim=D,
-                   pairs_passing=gpairs, rows_touched=rows_seen)))
+        shape=dict(**top, most_launched=most, run_sweep=sweep,
+                   batch_ms={name: {key: v for key, v in b.items()
+                                    if key != "shapes"}
+                             for name, b in batches["batches"].items()})))
     return out
+
+
+def _gather_key(q, lq, x, lxw, g, ln, **kw):
+    return q.shape[0], g.shape[1], kw.get("max_qtile")
+
+
+def _longest_run(gids, lens) -> int:
+    """The most consecutive queries of one launch that list the same
+    non-empty row list (the tile schedule's runs, over all windows)."""
+    g, n = gids.cpu().numpy(), lens.cpu().numpy()
+    same = np.all(g[1:] == g[:-1], axis=1) & (n[1:] == n[:-1]) & (n[1:] > 0)
+    best = run = 1
+    for s in same:
+        run = run + 1 if s else 1
+        best = max(best, run)
+    return best if len(g) else 0
+
+
+def gather_batch_schedules(clock, engines, qv, qls, k):
+    """B2 in every (Q, L, max_qtile) launch of one batch of each unfused
+    engine, timed on its first launch's inputs as the executor calls it
+    (the tile schedule; the +rerank shortlists at ``max_qtile=1``) and at
+    ``max_qtile=1``, bitwise equal, beside the launch's longest run of
+    queries listing one row list; each summed over the batch as launches
+    × ms."""
+    import torch
+
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import ops
+    out = {}
+    for name in ("f32/fused=False", "int8+rerank/fused=False"):
+        with ShapeLog(ops, "segmented_gather_distance", _gather_key) as log:
+            engines[name].search_batched(qv, qls, k)
+        shapes, as_called, per_pair = {}, 0.0, 0.0
+        for key, n in sorted(log.counts.items(), key=str):
+            args, kw = log.first[key]
+            kw = dict(kw)
+            mq = kw.pop("max_qtile", None)
+            if not torch.equal(
+                    gd.segmented_gather_distance(*args, **kw, max_qtile=mq),
+                    gd.segmented_gather_distance(*args, **kw, max_qtile=1)):
+                raise AssertionError(f"gather {name} {key}: the tile "
+                                     f"schedule differs from max_qtile=1")
+            ms_one = clock.ms(lambda: gd.segmented_gather_distance(
+                *args, **kw, max_qtile=1))
+            ms = ms_one if mq == 1 else clock.ms(
+                lambda: gd.segmented_gather_distance(*args, **kw,
+                                                     max_qtile=mq))
+            Q, L = args[4].shape
+            shapes[str(key)] = dict(
+                launches=n, longest_run=_longest_run(args[4], args[5]),
+                queries_per_block=gd.gather_qtile(
+                    Q, L, storage=gd._STORAGE[args[2].dtype],
+                    sms=gd._sms(args[0].device), max_qtile=mq),
+                ms=ms, ms_max_qtile_1=ms_one)
+            as_called += n * ms
+            per_pair += n * ms_one
+        out[name] = dict(launches=sum(log.counts.values()),
+                         as_called_ms=as_called, max_qtile_1_ms=per_pair,
+                         shapes=shapes)
+    return dict(batches=out, card_state=nvidia_smi(CARD_STATE))
+
+
+class ShapeLog:
+    """Inside a ``with`` block, count the calls of ``module.<name>`` by
+    ``key(*args, **kw)`` and keep the first call's arguments of each key.
+    ``module`` is the caller's module (``ops``), never the kernel's own:
+    a wrapper counts its launches on its module-level name."""
+
+    def __init__(self, module, name, key):
+        self.module, self.name, self.key = module, name, key
+        self.counts, self.first = {}, {}
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def record(*args, **kw):
+            k = self.key(*args, **kw)
+            self.counts[k] = self.counts.get(k, 0) + 1
+            self.first.setdefault(k, (args, kw))
+            return self.orig(*args, **kw)
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def most(self):
+        """The key called most often (ties: the most work, key[0]·key[1])
+        and its count."""
+        key = max(self.counts, key=lambda k: (self.counts[k], k[0] * k[1]))
+        return key, self.counts[key]
+
+
+def _gather_bound(args, kw, out_numel):
+    """B2's bound on these inputs: the queries, their labels and lens and
+    the ids read once, each listed row's label words once, each row that
+    passes some query's filter once (as stored), the output written once;
+    3·D rounded operations a passing pair."""
+    import torch
+    q, lq, x, lxw, gids, lens = args
+    Q, D = q.shape
+    W = lq.shape[1]
+    valid = (torch.arange(gids.shape[1], device=q.device)[None, :]
+             < lens[:, None])
+    g = gids.long()
+    passing = torch.all((lq[:, None, :] & lxw[g]) == lq[:, None, :],
+                        dim=-1) & valid
+    rows_seen = int(torch.unique(g[valid]).numel())
+    rows_pass = int(torch.unique(g[passing]).numel())
+    pairs = int(passing.sum())
+    row_bytes = D * x.element_size() + (8 if x.dtype == torch.uint8 else 0)
+    nbytes = (Q * D * 4 + Q * W * 4 + 4 * Q + 4 * gids.numel()
+              + 4 * W * rows_seen + row_bytes * rows_pass + 4 * out_numel)
+    return _bound(nbytes, pairs * 3 * D) + (pairs, rows_seen)
+
+
+def _time_gather(clock, args, kw, tag):
+    """B2 on one launch's inputs: the schedule ``kw`` asks for beside one
+    thread per pair (bitwise equal) and the plain version, with its
+    bound, the card's state after."""
+    import torch
+
+    from repro_torch.kernels import gather_distance as gd
+    kw = dict(kw)
+    mq = kw.pop("max_qtile", None)
+    kv = gd.segmented_gather_distance(*args, **kw, max_qtile=mq)
+    one = gd.segmented_gather_distance(*args, **kw, max_qtile=1)
+    if not torch.equal(kv, one):
+        raise AssertionError(f"{tag}: the tile schedule differs from "
+                             f"max_qtile=1")
+    err = _compare(kv, None, gd.segmented_gather_distance_plain(*args, **kw),
+                   None, integer=False, int8=args[2].dtype == torch.uint8,
+                   tag=tag)
+    ms = clock.ms(lambda: gd.segmented_gather_distance(*args, **kw,
+                                                       max_qtile=mq))
+    ms_one = clock.ms(lambda: gd.segmented_gather_distance(*args, **kw,
+                                                           max_qtile=1))
+    plain_ms = clock.ms(lambda: gd.segmented_gather_distance_plain(*args,
+                                                                   **kw),
+                        max_reps=5)
+    bound_ms, bound_by, pairs, rows = _gather_bound(args, kw, kv.numel())
+    Q, L = args[4].shape
+    return dict(args=args, q_bucket=Q, columns=L, dim=args[0].shape[1],
+                storage=str(args[2].dtype), max_qtile=mq,
+                queries_per_block=gd.gather_qtile(
+                    Q, L, storage=gd._STORAGE[args[2].dtype],
+                    sms=gd._sms(args[0].device), max_qtile=mq),
+                ms=ms, ms_max_qtile_1=ms_one, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                pairs_passing=pairs, rows_touched=rows,
+                card_state=nvidia_smi(CARD_STATE))
+
+
+# run lengths of B2's sweep: queries that list the same rows
+GATHER_SWEEP_RUNS = (1, 2, 3, 4, 6, 8, 16, 64)
+
+
+def gather_run_sweep(clock, args, seed=7):
+    """B2 on the top tier's queries and shape with runs of r consecutive
+    queries listing the same random rows (every column valid): one thread
+    per pair against the tile schedule (runs of more than
+    ``TILE_MIN_RUN`` tiled, shorter ones per pair inside the block),
+    bitwise equal."""
+    import torch
+
+    from repro_torch.kernels import gather_distance as gd
+    q, lq, x, lxw, gids, _ = args
+    Q, L = gids.shape
+    rng = np.random.default_rng(seed)
+    lens = torch.full((Q,), L, dtype=torch.int32, device=q.device)
+    out = {}
+    for r in GATHER_SWEEP_RUNS:
+        rows = rng.integers(0, x.shape[0], (-(-Q // r), L))
+        a = (q, lq, x, lxw, torch.from_numpy(np.repeat(rows, r, axis=0)[:Q]
+                                             .astype(np.int32)).to(q.device),
+             lens)
+        if not torch.equal(gd.segmented_gather_distance(*a),
+                           gd.segmented_gather_distance(*a, max_qtile=1)):
+            raise AssertionError(f"gather sweep run {r}: the tile schedule "
+                                 f"differs from max_qtile=1")
+        out[f"run_{r}"] = dict(
+            per_pair_ms=clock.ms(lambda: gd.segmented_gather_distance(
+                *a, max_qtile=1)),
+            tile_ms=clock.ms(lambda: gd.segmented_gather_distance(*a)))
+    return dict(q_bucket=Q, columns=L, tile_min_run=gd.TILE_MIN_RUN,
+                runs=out, card_state=nvidia_smi(CARD_STATE))
 
 
 def _dense_bound(Q: int, N: int, D: int, W: int, out_bytes: int):
@@ -1616,15 +1996,17 @@ def _dense_bound(Q: int, N: int, D: int, W: int, out_bytes: int):
 
 def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
     """masked_distance at the ivf engine's top tier (the workload's
-    queries routed to the largest index, on their power-of-two bucket)
-    and filtered_topk at the whole-dataset scan's [1024-bucket, N] shape,
-    each beside its plain version and its bound."""
+    queries routed to the largest index, on their power-of-two bucket) and
+    at the (Q, N) one ivf batch launches most often, and filtered_topk at
+    the whole-dataset scan's [1024-bucket, N] shape, each beside its plain
+    version and its bound, the card's state after."""
     import torch
 
     from repro_torch.core import (EMPTY_KEY, encode_many,
                                   masks_to_int32_words)
     from repro_torch.kernels import filtered_topk as ft
     from repro_torch.kernels import masked_distance as md
+    from repro_torch.kernels import ops
 
     qv, qls = ctx["qv"], ctx["qls"]
     dev = flat.device
@@ -1653,16 +2035,39 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
     Q, D = qp.shape
     N, W = ix._lxw.shape
     bound_ms, bound_by = _dense_bound(Q, N, D, W, 4 * Q * N)
+    top_state = nvidia_smi(CARD_STATE)
+    del kd
+    # the (Q, N) the ivf engine launches most often in one batch (its
+    # calls of ops.masked_distance, which hands them to the kernel)
+    with ShapeLog(ops, "masked_distance", lambda q, x, lq, lx, **kw: (
+            q.shape[0], x.shape[0])) as log:
+        ivf_eng.search_batched(qv, qls, PAPER["k"])
+    key, n_key = log.most()
+    margs = tuple(a.contiguous() for a in log.first[key][0])
+    mkw = dict(metric=log.first[key][1].get("metric", "l2"))
+    m_err = _compare(md.masked_distance(*margs, **mkw), None,
+                     md.masked_distance_plain(*margs, **mkw), None,
+                     integer=False, int8=False,
+                     tag=f"masked_distance at {key}")
+    m_bound, m_by = _dense_bound(key[0], key[1], D, W, 4 * key[0] * key[1])
+    most = dict(q_bucket=key[0], rows=key[1], launches_in_one_batch=n_key,
+                distinct_shapes_in_one_batch=len(log.counts),
+                ms=clock.ms(lambda: md.masked_distance(*margs, **mkw)),
+                plain_ms=clock.ms(lambda: md.masked_distance_plain(
+                    *margs, **mkw)),
+                bound_ms=m_bound, bound_by=m_by, max_abs_err=m_err,
+                card_state=nvidia_smi(CARD_STATE))
+    emit("masked_distance_most_launched_shape", **most)
     out.append(dict(
         name="masked_distance", route="cuda",
         source="src/repro_torch/csrc/masked_distance.cu",
         replaces="src/repro/kernels/masked_distance.py:64",
         launches=launches["masked_distance"],
-        max_abs_err=max(err, errs["masked_distance"]), ms=ms,
+        max_abs_err=max(err, m_err, errs["masked_distance"]), ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
-        shape=dict(queries=len(top), q_bucket=Q, rows=N, dim=D)))
-    del kd
+        shape=dict(queries=len(top), q_bucket=Q, rows=N, dim=D,
+                   card_state=top_state, most_launched=most)))
 
     k = PAPER["k"]
     qp, lp = padded(list(range(len(qls))))
@@ -1679,6 +2084,7 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
     span, splits = ft.span_split(Q, N, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     bound_ms, bound_by = _dense_bound(Q, N, D, W, 8 * Q * k)
+    ft_state = nvidia_smi(CARD_STATE)
     out.append(dict(
         name="filtered_topk", route="cuda",
         source="src/repro_torch/csrc/filtered_topk.cu",
@@ -1688,7 +2094,7 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
         shape=dict(queries=len(qls), q_bucket=Q, rows=N, dim=D, k=k,
-                   span_per_block=span, splits=splits)))
+                   span_per_block=span, splits=splits, card_state=ft_state)))
     return out
 
 
@@ -1832,9 +2238,14 @@ def time_decode_kernel(dev, clock, launches, errs, seed=12):
 # ---------------------------------------------------------------------------
 
 
+# masked_distance's instances (queries × rows a block, blocks an SM)
+MASKED_DISTANCE_INSTANCES = ((16, 128, 2), (64, 128, 2), (128, 64, 3))
+
 # the kernel instances whose -Xptxas -v figures phase 2 reports by name:
 # B6 as minitron_4b runs it (bf16, Dh 128, G 3 -> MAXG 4), B1's query-tile
-# kernel and its one-query kernel for f32 / l2 without tombstones
+# kernel and its one-query kernel for f32 / l2 without tombstones, B4's
+# three instances and B3's large one (l2), B2's tile kernel by storage
+# (f32, f16: gather_distance.TILE_STORAGES)
 PTXAS_INSTANCES = {
     "flash_decode_partial<bf16, 128, 4>": (
         "flash_decode", "flash_decode_partialI13__nv_bfloat16Li128ELi4E"),
@@ -1844,6 +2255,16 @@ PTXAS_INSTANCES = {
         "fused_scan", "fused_scan_tileILi0ELb1ELb0ELi2E"),
     "fused_scan_partial<f32, l2, no tomb>": (
         "fused_scan", "fused_scan_partialILi0ELb1ELb0E"),
+    **{f"masked_distance_kernel<{bq} x {bn}, l2>": (
+        "masked_distance",
+        f"masked_distance_kernelILi{bq}ELi{bn}ELi{minb}ELb1E")
+       for bq, bn, minb in MASKED_DISTANCE_INSTANCES},
+    "filtered_topk_partial<64, l2>": (
+        "filtered_topk", "filtered_topk_partialILi64ELb1E"),
+    **{f"seg_gather_tile_kernel<{name}, {metric}>": (
+        "gather_distance", f"seg_gather_tile_kernelILi{dt}ELb{ip}E")
+       for dt, name in enumerate(("f32", "fp16"))
+       for ip, metric in ((0, "l2"), (1, "ip"))},
 }
 
 
@@ -1876,11 +2297,13 @@ def ptxas_figures(build_dir) -> dict:
 
 def dynamic_smem() -> dict:
     """Dynamic shared memory of the redesigned kernels' blocks, as the
-    compiled libraries size them; the tile model's copy of the fused
-    scan's layout must agree."""
+    compiled libraries size them; the Python copies of the fused scan's
+    and the gather tile's layouts must agree."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import masked_distance as md
     lib = cuda_build.load("fused_scan", fs._SIGNATURES)
     out = {}
     for dtype, code in fs._DTYPES.items():
@@ -1894,6 +2317,18 @@ def dynamic_smem() -> dict:
             out[f"fused_scan {dtype} D 128 k' {kp} query tile {bq}"] = got
     out["flash_decode_partial<bf16, 128, 4>"] = cuda_build.load(
         "flash_decode", fd._SIGNATURES).flash_decode_smem_bytes(1, 128, 3)
+    dist = cuda_build.load("masked_distance", md._SIGNATURES)
+    for bq, bn, _ in MASKED_DISTANCE_INSTANCES:
+        out[f"dense tile {bq} x {bn}"] = dist.masked_distance_smem_bytes(bq)
+    gather = cuda_build.load("gather_distance", gd._SIGNATURES)
+    for code, storage in enumerate(gd.TILE_STORAGES):
+        got = gather.seg_gather_smem_bytes(code)
+        if got != gd.tile_smem_bytes(storage):
+            raise AssertionError(
+                f"gather_distance.tile_smem_bytes({storage!r}) is "
+                f"{gd.tile_smem_bytes(storage)}; the kernel's layout takes "
+                f"{got}")
+        out[f"seg_gather_tile_kernel {storage}"] = got
     return out
 
 

@@ -3,11 +3,13 @@
 
     python3 scripts/profile_port_paths.py          # from the repository root
     python3 scripts/profile_port_paths.py decode   # the decoder only
+    python3 scripts/profile_port_paths.py flat     # the flat engines only
 
 Builds ``chip_smoke.py``'s paper-scale workload (1,000,000 × 128 vectors,
-1,000 queries, one EIS selection at c = 0.2), then three searchers over
-it: the f32 flat engine with the fused scan (the main path), the engine on
-the ``ivf`` backend and the private-copy ``FlatIndex`` over every row;
+1,000 queries, one EIS selection at c = 0.2), then the searchers over
+it: the flat engines (f32 with the fused scan, the main path; f32 and
+int8+rerank unfused, through the segmented gather), the engine on the
+``ivf`` backend and the private-copy ``FlatIndex`` over every row;
 then the engine on the ``graph`` backend over the first 100,000 rows with
 its own selection (``chip_smoke.py``'s phase 4d at its smallest N); then
 ``minitron_4b`` at full width (``chip_smoke.py``'s phase 4e): one
@@ -124,6 +126,19 @@ def main() -> int:
                                  device=dev)
     searchers["flat engine, f32, fused"] = \
         lambda: flat_eng.search_batched(qv, qls, k)
+    for storage in ("f32", "int8+rerank"):
+        eng = LabelHybridEngine(vectors, label_sets, table, selection, None,
+                                "flat", "l2", {"fused": False}, 0.0,
+                                storage=storage, device=dev)
+        searchers[f"flat engine, {storage}, unfused"] = \
+            lambda eng=eng: eng.search_batched(qv, qls, k)
+    if sys.argv[1:] == ["flat"]:
+        for name, search in searchers.items():
+            print(json.dumps({"searcher": name, "queries": len(qls),
+                              **profile(search, dev)}, default=float),
+                  flush=True)
+        print(chip_smoke.nvidia_smi(), flush=True)
+        return 0
     ivf_eng = LabelHybridEngine(vectors, label_sets, table, selection, None,
                                 "ivf", "l2", {}, 0.0, device=dev)
     searchers["ivf engine"] = lambda: ivf_eng.search_batched(qv, qls, k)
@@ -139,7 +154,7 @@ def main() -> int:
         print(json.dumps({"searcher": name, "queries": len(qls),
                           **profile(search, dev)}, default=float),
               flush=True)
-    del searchers, flat_eng, ivf_eng, flat, graph_eng
+    del searchers, flat_eng, eng, ivf_eng, flat, graph_eng
     torch.cuda.empty_cache()
     for name, run in decode_searchers(dev, chip_smoke).items():
         print(json.dumps({"searcher": name, **profile(run, dev)},

@@ -11,13 +11,14 @@
 // Bound on the card.  2·Q·N·D flops against 4·((Q + N)·(D + W) + 2·Q·k)
 // bytes: no [Q, N] matrix reaches device memory, so the operations bound
 // it (at [1024, 10^6], D = 128: about 3.9 ms at 67 TFLOP/s f32 against
-// 0.16 ms of bytes; the rounded multiply and add are two instructions where
-// an FMA is one, so this kernel can reach half of that rate at most).
+// 0.16 ms of bytes; the tile's FMA chains can reach that rate).
 // Design.  The TPU kernel's k rounds of min/argmin per tile, carried across
 // a sequential grid, do not carry over: blocks run in parallel and nothing
 // is carried between them.  Instead:
 //   * a block owns (a tile of BQ queries, a span of N) and walks the span
-//     in [BQ, 128] tiles; each finished tile goes to shared memory;
+//     in [BQ, 128] tiles (dense_tile.cuh: a cp.async ring of 16 features
+//     a stage, BQ/16 × 8 FMA chains a thread; BQ = 16 for Q ≤ 16, else
+//     64); each finished tile goes to shared memory, in the ring's place;
 //   * warp w keeps the sorted k-pools of its BQ/8 queries in registers,
 //     one pool slot per lane (k ≤ 32).  A tile row is offered 32 rows at a
 //     time: a ballot against the pool's k-th key admits the few that beat
@@ -88,14 +89,20 @@ struct WarpPool {
   }
 };
 
+constexpr int BN = 128;  // rows of a tile
+
+// two blocks an SM (launch bound): in exploratory builds on an H100 the
+// unbounded kernel took 168 registers, one block an SM, and ran far
+// slower at [1024, 10^6]
 template <int BQ, bool L2>
-__global__ void __launch_bounds__(dense::kThreads) filtered_topk_partial(
+__global__ void __launch_bounds__(dense::kThreads, 2) filtered_topk_partial(
     const float* __restrict__ q, const float* __restrict__ x,
     const int* __restrict__ lq, const int* __restrict__ lx,
     float* __restrict__ out_v, int* __restrict__ out_p, int Q, int N, int D,
-    int W, int k, int span, int splits) {
+    int W, int k, int span, int splits, bool vec) {
   constexpr int R = BQ / 8;  // queries per warp
-  __shared__ dense::Smem<BQ> s;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& s = *reinterpret_cast<dense::Smem<BQ, BN>*>(smem);
   const int q0 = blockIdx.x * BQ, sp = blockIdx.y;
   const int lo = sp * span, hi = min(lo + span, N);
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -104,13 +111,13 @@ __global__ void __launch_bounds__(dense::kThreads) filtered_topk_partial(
 #pragma unroll
   for (int r = 0; r < R; ++r) pool[r].init(N);
 
-  for (int n0 = lo; n0 < hi; n0 += dense::BN) {
-    float d[BQ / 16][dense::TN];
-    dense::tile<BQ, L2>(q, x, lq, lx, Q, hi, D, W, q0, n0, s, d);
+  for (int n0 = lo; n0 < hi; n0 += BN) {
+    float d[BQ / 16][BN / 16];
+    dense::tile<BQ, BN, L2>(q, x, lq, lx, Q, hi, D, W, q0, n0, vec, s, d);
 #pragma unroll
     for (int a = 0; a < BQ / 16; ++a)
 #pragma unroll
-      for (int b = 0; b < dense::TN; ++b)
+      for (int b = 0; b < BN / 16; ++b)
         s.u.d[ty + 16 * a][tx + 16 * b] = d[a][b];
     __syncthreads();
 #pragma unroll
@@ -118,7 +125,7 @@ __global__ void __launch_bounds__(dense::kThreads) filtered_topk_partial(
       const int row = warp + 8 * r;
       if (q0 + row >= Q) continue;  // warp-uniform
 #pragma unroll
-      for (int c = 0; c < dense::BN; c += 32)
+      for (int c = 0; c < BN; c += 32)
         pool[r].offer(s.u.d[row][c + lane], n0 + c + lane, k);
     }
   }
@@ -153,16 +160,25 @@ __global__ void __launch_bounds__(dense::kThreads) filtered_topk_merge(
 }
 
 template <int BQ>
-void launch_partial(bool l2, dim3 grid, cudaStream_t st, const float* q,
-                    const float* x, const int* lq, const int* lx, float* pv,
-                    int* pp, int Q, int N, int D, int W, int k, int span,
-                    int splits) {
+cudaError_t launch_partial(bool l2, dim3 grid, cudaStream_t st,
+                           const float* q, const float* x, const int* lq,
+                           const int* lx, float* pv, int* pp, int Q, int N,
+                           int D, int W, int k, int span, int splits) {
+  constexpr int bytes = sizeof(dense::Smem<BQ, BN>);
+  static bool opted_l2 = false, opted_ip = false;
+  const cudaError_t err =
+      l2 ? dense::allow_smem(filtered_topk_partial<BQ, true>, bytes, opted_l2)
+         : dense::allow_smem(filtered_topk_partial<BQ, false>, bytes,
+                             opted_ip);
+  if (err != cudaSuccess) return err;
+  const bool vec = dense::vec_ok(q, x, D);
   if (l2)
-    filtered_topk_partial<BQ, true><<<grid, dense::kThreads, 0, st>>>(
-        q, x, lq, lx, pv, pp, Q, N, D, W, k, span, splits);
+    filtered_topk_partial<BQ, true><<<grid, dense::kThreads, bytes, st>>>(
+        q, x, lq, lx, pv, pp, Q, N, D, W, k, span, splits, vec);
   else
-    filtered_topk_partial<BQ, false><<<grid, dense::kThreads, 0, st>>>(
-        q, x, lq, lx, pv, pp, Q, N, D, W, k, span, splits);
+    filtered_topk_partial<BQ, false><<<grid, dense::kThreads, bytes, st>>>(
+        q, x, lq, lx, pv, pp, Q, N, D, W, k, span, splits, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -180,13 +196,13 @@ extern "C" int filtered_topk(const float* q, const float* x, const int* lq,
   const bool l2 = metric_ip == 0;
   float* pv = splits > 1 ? part_v : out_v;
   int* pp = splits > 1 ? part_p : out_p;
-  if (Q <= 16)
-    launch_partial<16>(l2, dim3((Q + 15) / 16, splits), st, q, x, lq, lx, pv,
-                       pp, Q, N, D, W, k, span, splits);
-  else
-    launch_partial<64>(l2, dim3((Q + 63) / 64, splits), st, q, x, lq, lx, pv,
-                       pp, Q, N, D, W, k, span, splits);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err =
+      Q <= 16 ? launch_partial<16>(l2, dim3((Q + 15) / 16, splits), st, q, x,
+                                   lq, lx, pv, pp, Q, N, D, W, k, span,
+                                   splits)
+              : launch_partial<64>(l2, dim3((Q + 63) / 64, splits), st, q, x,
+                                   lq, lx, pv, pp, Q, N, D, W, k, span,
+                                   splits);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int per_block = dense::kThreads / 32;
   filtered_topk_merge<<<(Q + per_block - 1) / per_block, dense::kThreads, 0,

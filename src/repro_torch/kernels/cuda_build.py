@@ -74,14 +74,20 @@ def build(names=SOURCES) -> dict[str, float]:
                                           text=True),
                          tmp, out, time.perf_counter())
     seconds, failed = {}, []
-    for name, (proc, tmp, out, t0) in running.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}.log").write_text(log)
-        if proc.returncode:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)
+    while len(seconds) < len(running):
+        for name, (proc, tmp, out, t0) in running.items():
+            if name in seconds:
+                continue
+            try:   # each compiler's own time: the first to end is read first
+                log, _ = proc.communicate(timeout=0.2)
+            except subprocess.TimeoutExpired:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            (BUILD_DIR / f"{name}.log").write_text(log)
+            if proc.returncode:
+                failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

@@ -235,7 +235,7 @@ def segmented_topk(q, lq, ax, alw, axn, rows_concat, starts, lens, *, k: int,
             def distance_fn(qt, lqt, rr, sgid, n_listed):
                 return segmented_gather_distance(
                     qt, lqt, rr, alw, sgid.to(torch.int32).contiguous(),
-                    n_listed, metric=metric)
+                    n_listed, metric=metric, max_qtile=1)
         vals, pos = ref.rerank_shortlist(q, lq, rerank, rerank_norms,
                                          rows_concat, starts, pos, k=k,
                                          lmax=lmax, metric=metric,

@@ -30,15 +30,19 @@ def test_kernels_and_engine_on_the_card(dev):
     phase-3 checks at a small size: B1 on runs of queries sharing a
     segment beside singletons, a run past the end of the row table,
     tombstones, f32 / fp16 / int8, l2 / ip, k' 10 and 40, at query tiles
-    1, 8 and 64, bitwise equal to each other), then the flat engine on the
-    card: batched ≡ looped, fused and unfused."""
+    1, 8 and 64, bitwise equal to each other; B2 on runs of queries
+    listing one window beside singletons, ragged lens, its tile schedule
+    at 64, 16 and 12 queries a block bitwise its per-pair schedule), then
+    the flat engine on the card: batched ≡ looped, fused and unfused."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
 
     out = chip_smoke.kernel_checks(dev, N=8192, Q=16, lmax=1024)
-    assert out["cases"] > 0
+    # integer and random data × 3 storages × 2 metrics × the schedules
+    assert out["cases"] > out["gather_run_cases"] == 2 * 3 * 2 * len(
+        chip_smoke.GATHER_QTILES)
 
     from repro_torch.core import (LabelHybridEngine, LabelWorkloadConfig,
                                   generate_label_sets,
@@ -69,7 +73,9 @@ def test_kernels_and_engine_on_the_card(dev):
 
 def test_private_kernels_and_ivf_on_the_card(dev):
     """The dense kernels against their plain versions (chip_smoke's phase-3
-    checks at a small size), then the ivf engine and the private-copy
+    checks at a small size: masked_distance at Q 1, 16, 17, 64, 65, 128 and
+    256, one to each side of its three instances' edges, at D 127 and on
+    unaligned operands, filtered_topk bitwise its values), then the ivf engine and the private-copy
     FlatIndex on the card: batched ≡ looped, launches counted, and the
     FlatIndex equal to its plain version up to boundary ties."""
     import sys

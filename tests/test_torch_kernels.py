@@ -352,6 +352,86 @@ def test_tile_model_is_deterministic_and_fills_the_card():
     assert roofline.scan_bytes_per_row(128, "int8") == 128 + 16 + 8 + 8
 
 
+def test_gather_schedules_on_the_cpu_and_tile_model():
+    """B2's ``max_qtile``: on the CPU every schedule returns the plain
+    version's result (the Pallas kernel's, in interpret mode) and a bad
+    value raises; the query-tile choice and its shared-memory mirror
+    against the card's limits; the unfused executor's "cuda" backend."""
+    Q, L, D, W = 6, 8, 16, 4
+    A = make_arena("int8", seed=5)
+    q, lq = queries(Q, D, W, 5)
+    gids = np.random.default_rng(6).integers(0, 60, (Q, L)).astype(np.int32)
+    gids[1:4] = gids[0]                      # a run of 4 listing one window
+    lens = np.array([8, 3, 0, 8, 5, 8], np.int32)
+    sz = dict(scales=A["scales"], zeros=A["zeros"])
+    args = [t(a) for a in (q, lq, A["ax"], A["alw"], gids, lens)]
+    for metric in ("l2", "ip"):
+        want = np.asarray(segmented_gather_distance_pallas(
+            *[j(a) for a in (q, lq, A["ax"], A["alw"], gids, lens)],
+            metric=metric, interpret=True, **{k: j(v) for k, v in sz.items()}))
+        for mq in (None, 1, 2, 8, tgd.TILE_QUERIES):
+            got = tgd.segmented_gather_distance(
+                *args, metric=metric, max_qtile=mq,
+                **{k: t(v) for k, v in sz.items()})
+            np.testing.assert_array_equal(np.isinf(got.numpy()),
+                                          np.isinf(want))
+            check_vals("int8", got.numpy(), want)
+    for bad in (0, -1, tgd.TILE_QUERIES + 1, 2.0, True, "8"):
+        with pytest.raises(ValueError):
+            tgd.segmented_gather_distance(*args, max_qtile=bad,
+                                          **{k: t(v) for k, v in sz.items()})
+    # the query tile: on an H100 the top tier's [256, 16384] chunk (512
+    # blocks) takes the full tile over f32 and f16 rows, the per-pair
+    # kernel over int8 rows and at [128, 16384] (256 blocks, under the 264
+    # the card runs at once); a tile never exceeds Q, max_qtile or
+    # TILE_QUERIES, holds a run longer than TILE_MIN_RUN and fills the
+    # card, or is the per-pair kernel (1)
+    assert tgd.gather_qtile(256, 16384) == tgd.TILE_QUERIES
+    assert tgd.gather_qtile(256, 16384, storage="fp16") == tgd.TILE_QUERIES
+    assert tgd.gather_qtile(256, 16384, storage="int8") == 1
+    assert tgd.gather_qtile(128, 16384) == 1
+    assert tgd.gather_qtile(128, 16384, sms=64) == tgd.TILE_QUERIES
+    assert tgd.gather_qtile(256, 16384, max_qtile=1) == 1
+    assert tgd.gather_qtile(1, 16384) == 1
+    assert tgd.gather_qtile(256, (tgd.MAX_WINDOWS + 1)
+                            * tgd.TILE_COLUMNS) == 1
+    for Qn in (1, 2, 3, 17, 64, 80, 256):
+        for Ln in (1, 127, 128, 1000, 16384, 40000):
+            for mq in (None, 1, 2, 8, 16, 64):
+                qt = tgd.gather_qtile(Qn, Ln, max_qtile=mq)
+                assert qt == 1 or (
+                    tgd.TILE_MIN_RUN < qt
+                    <= min(Qn, mq or 64, tgd.TILE_QUERIES)
+                    and -(-Qn // qt) * -(-Ln // tgd.TILE_COLUMNS)
+                    >= tgd.TILE_BLOCKS_PER_SM * H100.multi_processor_count)
+    # the tile block's shared memory: more than the default 48 KB (the
+    # kernel opts in), and two blocks (its launch bound) fit on an SM
+    for storage in tgd.TILE_STORAGES:
+        nbytes = tgd.tile_smem_bytes(storage)
+        assert 48 * 1024 < nbytes <= H100.shared_memory_per_block_optin
+        assert 2 * (nbytes + 1024) <= H100.shared_memory_per_multiprocessor
+    assert (tgd.tile_smem_bytes("fp16") - tgd.tile_smem_bytes("f32")
+            == tgd.TILE_COLUMNS * (tgd.TILE_STEP + 4) * 4
+            - 2 * tgd.TILE_COLUMNS * tgd.TILE_STEP * 2)
+    # the unfused executor on the "cuda" backend (plain versions on CPU
+    # tensors) with a run longer than TILE_MIN_RUN and without one: on
+    # integer data the direct and norms forms agree, so the ids equal the
+    # "ref" backend's
+    A = make_arena("f32", seed=7)
+    nq = tgd.TILE_MIN_RUN + 4
+    qn, lqn = queries(nq, 16, 4, 7)
+    rc = np.random.default_rng(8).integers(0, 60, 4 * nq).astype(np.int32)
+    for st in (np.zeros(nq, np.int32), np.arange(nq, dtype=np.int32) * 3):
+        args = (qn, lqn, A["ax"], A["alw"], A["axn"], rc, st,
+                np.full(nq, 10, np.int32))
+        got = tops.segmented_topk(*args, k=4, lmax=16, backend="cuda",
+                                  fused=False, device="cpu")
+        want = tops.segmented_topk(*args, k=4, lmax=16, backend="ref",
+                                   fused=False, device="cpu")
+        np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+        np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+
+
 # ---------------------------------------------------------------------------
 # the plain oracles of kernels/ref.py
 # ---------------------------------------------------------------------------
