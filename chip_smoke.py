@@ -10,8 +10,9 @@ Phases, one JSON line each on standard output:
      ``build/`` (one compiler per source, all started together, while the
      host generates the data); ``-Xptxas -v``'s registers, spills and
      shared memory of the redesigned B1, B2 (tile), B3, B4 and B6
-     instances, and their blocks' dynamic shared memory (B1's and B2's
-     held against their Python mirrors);
+     instances and of the graph walk, and their blocks' dynamic shared
+     memory (B1's, B2's and the walk's held against their Python
+     mirrors);
   3. kernels — each kernel against its plain torch version on the card.
      The segmented kernels: f32 / fp16 / int8, l2 / ip, tombstones on and
      off, ragged and empty segments, a tail segment, k' > lmax; the fused
@@ -31,7 +32,15 @@ Phases, one JSON line each on standard output:
      filtered_topk's values bitwise masked_distance's, and the same query
      rows bitwise equal at buckets 1, 8 and 256.  The graph's per-hop
      gather_distance: l2 / ip, ids < 0, D = 128 and 100, Q = 1 and
-     batches, buckets 1 / 8 / 256; the decode attention flash_decode: f32
+     batches, buckets 1 / 8 / 256; the graph walk kernel (graph_walk)
+     against the torch hop loop, every lane's dists, ids, hops and
+     distance computations bitwise, on graphs of 4,099 rows (D 37, M 8
+     and 16) and 20,011 rows (D 128, M 16) over integer and random rows,
+     l2 / ip, pre / post, tombstones on and off, ef k / 64 (256 for two
+     of those), three entries a lane with -1 among them and a pad lane,
+     and two planted faults (ties merged the wrong way, a lane stopped
+     one hop early) that must fail it; the decode attention
+     flash_decode: f32
      and bf16, minitron's GQA (24 heads over 8), MQA and MHA, Dh 128 / 64 /
      16, S 1 / 127 / 4,096 / 32,768, lengths 1, S and random, poisoned
      slots past the length (bitwise no change) and rows bitwise equal at
@@ -65,11 +74,14 @@ Phases, one JSON line each on standard output:
      search_padded sliced, warm QPS and p50/p99;
   4d. the ``graph`` backend (M 16, n_cand 64, α 1.2, ef 64, post) over
      the data's first 100,000 rows (raised along 200k / 500k / 10^6 while
-     a build takes under 20 s and the phase fits its ~5 minutes) with its
+     a build takes under 30 s and the phase fits its ~5 minutes) with its
      own selection: build seconds by stage, batched == looped on 200
-     queries, ``"cuda"`` == ``"ref"`` up to ties, every result passing its
-     filter, every degree <= M; recall@10, QPS, p50/p99, hops and distance
-     computations reported.
+     queries, ``"cuda"`` (the walk kernel, one launch a routed group, no
+     gather_distance) == ``"ref"`` (the torch hop loop) bitwise on 82
+     queries with their hops and distance computations, and on the whole
+     batch with the hops and distance computations of the first 200,
+     every result passing its filter, every degree <= M; recall@10, QPS,
+     p50/p99, hops and distance computations reported.
   4e. minitron_4b at full width (4.19 B parameters, bf16, initialized on
      the card from a seeded generator) served by a BatchedDecoder with 8
      slots and max_len 2,048: 16 requests, prompts of 64–512 tokens,
@@ -87,6 +99,8 @@ Phases, one JSON line each on standard output:
      4e and read just after; each kernel of that path must have launched;
   5. each kernel timed at its path's top-tier shapes beside its plain
      version and its bound (gather_distance at one hop: [256, 16] ids;
+     the graph walk over the top graph index's 256-lane bucket beside
+     the torch hop loop;
      flash_decode at the decode_32k cell, B 128 × S 32,768 with
      minitron's heads, beside scaled_dot_product_attention; checked
      against the plain version, planted fault rejected, as in phase 3);
@@ -696,6 +710,125 @@ def graph_kernel_checks(dev, *, N=20011, seed=4):
                           f"atol {ATOL}; buckets 1 / 8 / 256: bitwise")
 
 
+# the walk kernel's checks: (rows, D, M) of each graph (D 37: the
+# staging's 4-byte copies; D 128: its 16-byte copies), and the ef of each
+# case ("k": ef = k); ef 256, whose torch loop walks ~4x as many hops,
+# only for (metric, strategy, tombstones) in WALK_WIDE
+WALK_GRAPHS = ((4099, 37, 8), (4099, 37, 16), (20011, 128, 16))
+WALK_EFS = ("k", 64, 256)
+WALK_WIDE = (("l2", "post", True), ("ip", "pre", False))
+
+
+def _walk_equal(got, want) -> tuple[int, float]:
+    """Lanes of two graph walks (dists, ids, hops, distance computations)
+    that differ in any bit, and the largest absolute difference of their
+    finite dists."""
+    import torch
+    gd, gi, gh, gc = got
+    wd, wi, wh, wc = (t.to(gd.device) for t in want)
+    same = ((gd.view(torch.int32) == wd.view(torch.int32)).all(1)
+            & (gi == wi).all(1) & (gh == wh) & (gc == wc))
+    fin = torch.isfinite(gd) & torch.isfinite(wd)
+    err = float((gd - wd)[fin].abs().max()) if fin.any() else 0.0
+    return int((~same).sum()), err
+
+
+def graph_walk_checks(dev, *, graphs=WALK_GRAPHS, Q=64, k=10, seed=9):
+    """The walk kernel (``graph_walk``) against its plain version, the
+    torch hop loop, on the card: dists (every bit), ids, hops and
+    distance computations of every lane equal.  Graphs built on the card
+    over integer (``rint(randn·2)``: many equal distances) and random
+    rows; l2 / ip, pre / post, with and without a tombstone bitmap (30%),
+    ef ∈ {k, 64}, and ef 256 for the cases of ``WALK_WIDE``; each lane
+    seeded at the medoid and two more entries, random or -1, and one pad
+    lane (all -1).  Two planted faults must fail it: new candidates
+    merged ahead of equal pool entries, and each lane stopped one hop
+    early (integer graphs, l2, post, ef 64)."""
+    import torch
+
+    from repro_torch.index.base import pack_tombstones
+    from repro_torch.index.graph import GraphIndex
+    from repro_torch.kernels import graph_walk as gw
+
+    rng = np.random.default_rng(seed)
+    cases = lanes = hops = max_hops = 0
+    err = 0.0
+    faults = {name: 0 for name in gw.PLANTED_FAULTS.values()}
+    W = 2
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for N, D, M in graphs:
+        for integer in (True, False):
+            x = rng.standard_normal((N, D)).astype(np.float32)
+            q = rng.standard_normal((Q, D)).astype(np.float32)
+            if integer:
+                x, q = np.rint(x * 2), np.rint(q * 2)
+            lxw = np.zeros((N, W), np.int32)
+            lxw[:, 0] = rng.integers(0, 256, N) | rng.integers(0, 256, N)
+            lxw[:, 1] = rng.integers(0, 2, N)
+            lq = np.zeros((Q, W), np.int32)
+            lq[:, 0] = rng.integers(0, 256, Q) & rng.integers(0, 256, Q) \
+                & rng.integers(0, 256, Q)
+            lq[: Q // 4, 1] = 1
+            base = GraphIndex(x, lxw, M=M, n_cand=32, device=dev)
+            ent = np.full((Q, 3), -1, np.int64)
+            ent[:, 0] = base.medoid
+            ent[:, 1:] = rng.integers(-N // 2, N, (Q, 2))
+            ent[ent < 0] = -1
+            ent[-1] = -1                                    # a pad lane
+            tomb = t(pack_tombstones(rng.random(N) < 0.3))
+            qd, lqd, entd = t(q), t(lq), t(ent)
+            for metric in ("l2", "ip"):
+                ix = base if metric == "l2" else GraphIndex(
+                    x, lxw, metric="ip", M=M, adjacency=base.adjacency,
+                    medoid=base.medoid, device=dev)
+                args = (qd, lqd, entd, ix._xb, ix._adj_ext, ix._lxw_ext)
+                for strategy in ("post", "pre"):
+                    for tb in (None, tomb):
+                        for ef in WALK_EFS:
+                            ef = k if ef == "k" else ef
+                            if ef == 256 and (metric, strategy, tb is not
+                                              None) not in WALK_WIDE:
+                                continue
+                            kw = dict(k=k, ef=ef, metric=metric,
+                                      strategy=strategy)
+                            want = gw.graph_walk_plain(*args, tb, **kw)
+                            got = gw.graph_walk(*args, tb, **kw)
+                            tag = (f"graph_walk N={N} D={D} M={M} int="
+                                   f"{integer} {metric} {strategy} tomb="
+                                   f"{tb is not None} ef={ef}")
+                            bad, e = _walk_equal(got, want)
+                            err = max(err, e)
+                            if bad:
+                                raise AssertionError(f"{tag}: {bad} of {Q} "
+                                                     f"lanes differ")
+                            if int(got[2][-1]) != 0 or int(got[3][-1]) != 0:
+                                raise AssertionError(f"{tag}: the pad lane "
+                                                     f"walked")
+                            cases += 1
+                            lanes += Q
+                            hops += int(got[2].sum())
+                            max_hops = max(max_hops, int(got[2].max()))
+                            if integer and metric == "l2" and \
+                                    strategy == "post" and tb is None \
+                                    and ef == 64:
+                                for code, name in gw.PLANTED_FAULTS.items():
+                                    faults[name] += _walk_equal(
+                                        gw.graph_walk_planted(
+                                            *args, tb, **kw, fault=code),
+                                        want)[0]
+    for name, bad in faults.items():
+        if bad == 0:
+            raise AssertionError(f"graph_walk: the planted fault ({name}) "
+                                 f"was not caught")
+    return dict(cases=cases, lanes=lanes, hops=hops, max_hops=max_hops,
+                planted_fault_lanes_differing=faults,
+                max_abs_err={"graph_walk": err},
+                tolerance="every lane bitwise: dists, ids, hops and "
+                          "distance computations")
+
+
 def tie_free_points(n, D, n_cand, scale, seed):
     """Integer rows (exact f32 distances) whose nearest ``n_cand + 1``
     distances are distinct in every row: rows of a tied list are drawn
@@ -1135,7 +1268,7 @@ def ivf_path(dev, *, data, ctx, counts, clock):
     build_s = time.perf_counter() - t0
     before = dict(counts())
     t0 = time.perf_counter()
-    _, ids = eng.search_batched(qv, qls, k)
+    first_d, ids = eng.search_batched(qv, qls, k)
     first_s = time.perf_counter() - t0
     per_batch = {name: counts()[name] - before[name] for name in before}
     recall = recall_at_k(ids, ctx["truth"], n)
@@ -1205,7 +1338,7 @@ def flat_scan_path(dev, *, data, ctx, counts, clock):
 
 GRAPH = dict(M=16, n_cand=64, alpha=1.2, ef_search=64, strategy="post")
 GRAPH_ROWS = (100_000, 200_000, 500_000, 1_000_000)
-GRAPH_RAISE_BELOW_S = 20.0      # raise N only if the first build is faster
+GRAPH_RAISE_BELOW_S = 30.0      # raise N only if the first build is faster
 GRAPH_PHASE_BUDGET_S = 300.0
 
 
@@ -1227,41 +1360,29 @@ def _graph_engine(dev, data, n):
                      build_seconds=st.build_seconds, seconds=total)
 
 
-def _graph_cuda_vs_ref(eng, qv, qls, k, qsel):
-    """The graph engine's ``"cuda"`` results against the same graphs
-    searched with ``kernel_backend="ref"``; a query may differ only at a
-    boundary tie (the displaced values agree within the tolerance)."""
-    import torch
+class _OnRef:
+    """Every index of a graph engine on ``kernel_backend="ref"`` (the
+    torch hop loop) inside the block."""
 
-    qs, ls = qv[qsel], [qls[i] for i in qsel]
-    got = eng.search_batched(qs, ls, k)
-    for ix in eng.indexes.values():
-        ix.kernel_backend = "ref"
-    try:
-        want = eng.search_batched(qs, ls, k)
-    finally:
-        for ix in eng.indexes.values():
+    def __init__(self, eng):
+        self.indexes = list(eng.indexes.values())
+
+    def __enter__(self):
+        for ix in self.indexes:
+            ix.kernel_backend = "ref"
+
+    def __exit__(self, *exc):
+        for ix in self.indexes:
             ix.kernel_backend = "cuda"
-    gd, gi = (torch.from_numpy(a) for a in got)
-    wd, wi = (torch.from_numpy(a) for a in want)
-    rows = (gi != wi).any(dim=1).nonzero().flatten().tolist()
-    for r in rows:
-        diff = gi[r] != wi[r]
-        fin = torch.isfinite(wd[r])
-        if not (torch.equal(torch.isfinite(gd[r]), fin) and torch.allclose(
-                gd[r][diff & fin], wd[r][diff & fin], rtol=RTOL, atol=ATOL)):
-            raise AssertionError(f"graph cuda vs ref: query {qsel[r]} "
-                                 f"differs beyond ties")
-    return dict(queries=len(qsel), equal=len(qsel) - len(rows),
-                value_ties=len(rows))
 
 
 def _graph_walk_stats(eng, qv, qls, k):
-    """Mean hops and distance computations per query: each routed group
+    """Per-query hops and distance computations: each routed group
     searched once through its index's ``search`` (which keeps them)."""
     from repro_torch.core import encode_many, masks_to_int32_words
 
-    hops, dcs = [], []
+    hops = np.zeros(len(qls), np.int64)
+    dcs = np.zeros(len(qls), np.int64)
     by_key = {}
     for qi, key in enumerate(eng.route_many(qls)):
         by_key.setdefault(key, []).append(qi)
@@ -1269,23 +1390,53 @@ def _graph_walk_stats(eng, qv, qls, k):
     for key, qids in by_key.items():
         ix = eng.indexes[key]
         ix.search(qv[qids], qw[qids], k)
-        hops.append(ix.last_stats.hops)
-        dcs.append(ix.last_stats.dist_comps)
-    return (float(np.concatenate(hops).mean()),
-            float(np.concatenate(dcs).mean()))
+        hops[qids] = ix.last_stats.hops
+        dcs[qids] = ix.last_stats.dist_comps
+    return hops, dcs
+
+
+def _graph_cuda_vs_ref(eng, qv, qls, k, qsel):
+    """The graph engine's ``"cuda"`` results (the walk kernel) against the
+    same graphs searched with ``kernel_backend="ref"`` (the torch hop
+    loop): every selected query's dists and ids equal bit for bit, and
+    its hops and distance computations."""
+    import torch
+
+    qs, ls = qv[qsel], [qls[i] for i in qsel]
+    got = eng.search_batched(qs, ls, k)
+    got_stats = _graph_walk_stats(eng, qs, ls, k)
+    with _OnRef(eng):
+        want = eng.search_batched(qs, ls, k)
+        want_stats = _graph_walk_stats(eng, qs, ls, k)
+    gd, gi = (torch.from_numpy(a) for a in got)
+    wd, wi = (torch.from_numpy(a) for a in want)
+    same = ((gd.view(torch.int32) == wd.view(torch.int32)).all(1)
+            & (gi == wi).all(1))
+    ties = ((gi != wi).any(1) & torch.isclose(gd, wd, rtol=RTOL,
+                                              atol=ATOL).all(1))
+    out = dict(queries=len(qsel), equal=int(same.sum()),
+               value_ties=int((ties & ~same).sum()),
+               hops_equal=int((got_stats[0] == want_stats[0]).sum()),
+               dist_comps_equal=int((got_stats[1] == want_stats[1]).sum()))
+    if not (out["equal"] == out["hops_equal"] == out["dist_comps_equal"]
+            == len(qsel)):
+        raise AssertionError(f"graph cuda vs ref: {out}")
+    return out
 
 
 def graph_path(dev, *, data, counts, clock):
     """Phase 4d: the engine on the ``graph`` backend (JAX defaults: M 16,
     n_cand 64, α 1.2, ef 64, PostFiltering) over the paper data's first
     100,000 rows, its own selection and the phase-4 workload; if that
-    build takes under 20 s, N is raised along ``GRAPH_ROWS`` while the
+    build takes under 30 s, N is raised along ``GRAPH_ROWS`` while the
     phase is predicted to stay within its budget.  Gates: batched ≡ looped on 200
-    queries, ``"cuda"`` ≡ ``"ref"`` up to boundary ties on the first 64
-    queries and 32 of the top index's, every returned id passes its
-    query's filter, every degree ≤ M.  Hops and distance computations
-    are the means over the first 200 queries.  Returns its results and
-    engine."""
+    queries; ``"cuda"`` (the walk kernel) ≡ ``"ref"`` (the torch hop
+    loop) bitwise, with equal hops and distance computations, on the
+    first 64 queries and 32 of the top index's, and on the whole batch;
+    one walk launch per routed group and no ``gather_distance``; every
+    returned id passes its query's filter, every degree ≤ M.  Hops and
+    distance computations are the means over the first 200 queries.
+    Returns its results and engine."""
     import torch
 
     from repro_torch.core import (EMPTY_KEY, encode_many,
@@ -1304,9 +1455,9 @@ def graph_path(dev, *, data, counts, clock):
                 f"(raise only below {GRAPH_RAISE_BELOW_S:.0f} s)")
     for nxt in GRAPH_ROWS[1:] if stop is None else ():
         # selection and build grow a little faster than the rows; the
-        # searches below took ~100 s at 200k rows on an H100 host
+        # searches below, most of it the torch hop loop's, take ~60-100 s
         predicted = (time.perf_counter() - t_phase
-                     + built["seconds"] * nxt / n * 1.5 + 150.0)
+                     + built["seconds"] * nxt / n * 1.5 + 100.0)
         if predicted > GRAPH_PHASE_BUDGET_S:
             stop = (f"{nxt} rows would take the phase to ~{predicted:.0f} s "
                     f"(budget {GRAPH_PHASE_BUDGET_S:.0f} s; the {n}-row "
@@ -1333,7 +1484,7 @@ def graph_path(dev, *, data, counts, clock):
                        qls, k, dev)
     before = dict(counts())
     t0 = time.perf_counter()
-    _, ids = eng.search_batched(qv, qls, k)
+    first_d, ids = eng.search_batched(qv, qls, k)
     first_s = time.perf_counter() - t0
     per_batch = {name: counts()[name] - before[name] for name in before}
     recall = recall_at_k(ids, truth, n)
@@ -1352,6 +1503,20 @@ def graph_path(dev, *, data, counts, clock):
     qsel = sorted(set(range(64)) | set(top[:32]))
     vs_ref = _graph_cuda_vs_ref(eng, qv, qls, k, qsel)
     hops, dcomps = _graph_walk_stats(eng, qv[:200], qls[:200], k)
+    # the torch hop loop over the whole batch on the same graphs: its
+    # recall, hops and distance computations must be the kernel's
+    with _OnRef(eng):
+        t0 = time.perf_counter()
+        ref_d, ref_ids = eng.search_batched(qv, qls, k)
+        ref_s = time.perf_counter() - t0
+        ref_hops, ref_dcomps = _graph_walk_stats(eng, qv[:200], qls[:200],
+                                                 k)
+    ref_equal = bool(np.array_equal(ref_ids, ids) and np.array_equal(
+        ref_d.view(np.int32), first_d.view(np.int32)))
+    stats_equal = bool(np.array_equal(hops, ref_hops)
+                       and np.array_equal(dcomps, ref_dcomps))
+    launches_ok = (per_batch["gather_distance"] == 0
+                   and per_batch["graph_walk"] == len(set(routed)))
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1377,7 +1542,15 @@ def graph_path(dev, *, data, counts, clock):
                launches_per_1000_query_batch=per_batch,
                batched_equals_looped=looped_ok, cuda_vs_ref=vs_ref,
                filters_pass=filters_ok, degree_at_most_M=degree_ok,
-               mean_hops=hops, mean_dist_comps=dcomps,
+               mean_hops=float(hops.mean()),
+               mean_dist_comps=float(dcomps.mean()),
+               max_hops=int(hops.max()),
+               ref_loop=dict(recall_at_10=recall_at_k(ref_ids, truth, n),
+                             batch_seconds=ref_s,
+                             mean_hops=float(ref_hops.mean()),
+                             mean_dist_comps=float(ref_dcomps.mean()),
+                             batch_equal=ref_equal,
+                             hops_and_dist_comps_equal=stats_equal),
                warm_qps=len(qls) / float(np.median(times)),
                batch_seconds=times,
                p50_ms_32=float(np.percentile(lat, 50)) * 1e3,
@@ -1390,6 +1563,14 @@ def graph_path(dev, *, data, counts, clock):
         raise AssertionError("graph: a returned id fails its filter")
     if not degree_ok:
         raise AssertionError("graph: a degree above M or an id out of range")
+    if not (ref_equal and stats_equal):
+        raise AssertionError("graph: the walk kernel's batch, hops or "
+                             "distance computations differ from the torch "
+                             "hop loop's")
+    if not launches_ok:
+        raise AssertionError(f"graph: launches {per_batch} for "
+                             f"{len(set(routed))} routed groups (want one "
+                             f"walk a group and no gather_distance)")
     return res, eng
 
 
@@ -2102,7 +2283,7 @@ def time_graph_kernel(graph_eng, ctx, clock, launches, errs, seed=6):
     """gather_distance at one hop's shape: the ids [256, 16] of the
     neighbour lists of 256 nodes of the top graph index (the workload's
     top-index queries on their bucket), beside its plain version and its
-    bound."""
+    bound; then the walk kernel (:func:`time_graph_walk`)."""
     import torch
 
     from repro_torch.core import EMPTY_KEY
@@ -2138,7 +2319,134 @@ def time_graph_kernel(graph_eng, ctx, clock, launches, errs, seed=6):
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
         shape=dict(queries=len(top), q_bucket=Q, ids_per_query=ids.shape[1],
-                   dim=D, index_rows=ix.num_vectors, pairs=pairs))]
+                   dim=D, index_rows=ix.num_vectors, pairs=pairs)),
+        time_graph_walk(graph_eng, ctx, clock, launches, errs)]
+
+
+class _RecordedAdjacency:
+    """An adjacency table that records the nodes a walk expands: the torch
+    hop loop reads it only as ``adj.shape`` and ``adj[u]``, u [B] the
+    node each lane expands at that hop."""
+
+    def __init__(self, adj):
+        self.adj, self.shape, self.expanded = adj, adj.shape, []
+
+    def __getitem__(self, u):
+        self.expanded.append(u)
+        return self.adj[u]
+
+
+def _walk_footprint(args, kw):
+    """The torch hop loop on ``args`` (q, lq, entries, x, adj, lxw) with
+    its expanded nodes recorded, and what the walk needed of memory: the
+    nodes some lane expanded (``adjacency_rows``), the nodes some lane
+    visited (``label_rows``: each visited node's labels are tested), the
+    rows some lane needed a distance of (``rows``: every visited node on
+    ``post``, the seeds and the passing ones on ``pre``), each counted
+    once across lanes, and the distances the lanes needed, lane by lane
+    (``lane_distances``).  A lane's nodes are its seeds and the
+    neighbours of the nodes it expanded in its first ``hops`` hops (a
+    finished lane freezes, its later hops expand nothing);
+    ``lane_visited`` summed over lanes equals the walks' distance
+    computations when no adjacency row repeats an id."""
+    import torch
+
+    from repro_torch.kernels import graph_walk as gw
+
+    q, lq, entries, x, adj, lxw = args
+    rec = _RecordedAdjacency(adj)
+    want = gw.graph_walk_plain(q, lq, entries, x, rec, lxw, **kw)
+    hops = want[2].long()
+    N, (B, E) = x.shape[0], entries.shape
+    u = torch.stack(rec.expanded)                       # [H, B]
+    live = torch.arange(u.shape[0], device=u.device)[:, None] < hops
+    lane = torch.arange(B, device=u.device)
+    exp_lane = lane.expand_as(u)[live]
+    exp_node = u[live]
+    nbr = adj[exp_node]                                 # [hops, M]
+    vis_lane = torch.cat([lane[:, None].expand(B, E).reshape(-1),
+                          exp_lane[:, None].expand_as(nbr).reshape(-1)])
+    vis_node = torch.cat([entries.reshape(-1), nbr.reshape(-1)])
+    seed = torch.cat([torch.ones(B * E, dtype=torch.bool, device=u.device),
+                      torch.zeros(nbr.numel(), dtype=torch.bool,
+                                  device=u.device)])
+    keep = (vis_node >= 0) & (vis_node < N)
+    vis_lane, vis_node, seed = vis_lane[keep], vis_node[keep], seed[keep]
+    pair = torch.unique(vis_lane * (N + 1) + vis_node)
+    seed_pair = torch.unique(vis_lane[seed] * (N + 1) + vis_node[seed])
+    p_lane, p_node = pair // (N + 1), pair % (N + 1)
+    if kw["strategy"] == "pre":
+        lw = lq[p_lane]
+        need = ((lw & lxw[p_node]) == lw).all(1) | torch.isin(pair,
+                                                              seed_pair)
+    else:
+        need = torch.ones_like(pair, dtype=torch.bool)
+    return want, dict(
+        adjacency_rows=int(torch.unique(exp_node).numel()),
+        label_rows=int(torch.unique(p_node).numel()),
+        rows=int(torch.unique(p_node[need]).numel()),
+        lane_distances=int(need.sum()), lane_visited=int(pair.numel()),
+        lane_hops=int(hops.sum()))
+
+
+def time_graph_walk(graph_eng, ctx, clock, launches, errs):
+    """The walk kernel at the top graph index's bucket, as the engine's
+    ``search_padded`` calls it (the workload's top-index queries, zero
+    pad lanes, every lane seeded at the medoid, k 10, ef 64, post),
+    beside the torch hop loop on the same inputs and the bound of the
+    work this run's walks did (:func:`_walk_footprint`): each row, label
+    row and adjacency row that some lane needed, read once however many
+    lanes touched it, the queries, labels and results read or written
+    once, and 3·D operations (2·D for ip) a distance a lane needed."""
+    import torch
+
+    from repro_torch.core import EMPTY_KEY, encode_many, masks_to_int32_words
+    from repro_torch.kernels import graph_walk as gw
+
+    qv, qls = ctx["qv"], ctx["qls"]
+    ix = graph_eng.indexes[EMPTY_KEY]
+    dev = ix.device
+    k = PAPER["k"]
+    top = [i for i, key in enumerate(graph_eng.route_many(qls))
+           if key == EMPTY_KEY]
+    b = 1 << max(len(top) - 1, 0).bit_length()
+    qw = masks_to_int32_words(encode_many([qls[i] for i in top]))
+    qp = torch.zeros((b, qv.shape[1]), dtype=torch.float32, device=dev)
+    qp[:len(top)] = torch.from_numpy(qv[top]).to(dev)
+    lp = torch.zeros((b, qw.shape[1]), dtype=torch.int32, device=dev)
+    lp[:len(top)] = torch.from_numpy(qw).to(dev)
+    ent = torch.full((b, 1), ix.medoid, dtype=torch.int64, device=dev)
+    args = (qp, lp, ent, ix._xb, ix._adj_ext, ix._lxw_ext)
+    kw = dict(k=k, ef=max(ix.ef_search, k), metric=ix.metric,
+              strategy=ix.strategy)
+    got = gw.graph_walk(*args, **kw)
+    want, foot = _walk_footprint(args, kw)
+    bad, err = _walk_equal(got, want)
+    if bad:
+        raise AssertionError("graph_walk at the top index's bucket differs "
+                             "from the torch hop loop")
+    ms = clock.ms(lambda: gw.graph_walk(*args, **kw))
+    plain_ms = clock.ms(lambda: gw.graph_walk_plain(*args, **kw),
+                        max_reps=3)
+    hops, dcs = got[2].long(), got[3].long()
+    D, W, M = qp.shape[1], lp.shape[1], ix.M
+    nbytes = (4 * D * foot["rows"] + 4 * W * foot["label_rows"]
+              + 8 * M * foot["adjacency_rows"]
+              + 4 * b * (D + W + 2) + 8 * b * (k + 1))
+    bound_ms, bound_by = _bound(
+        nbytes, (2 if ix.metric == "ip" else 3) * D * foot["lane_distances"])
+    return dict(
+        name="graph_walk", route="cuda",
+        source="src/repro_torch/csrc/graph_walk.cu",
+        replaces="src/repro/kernels/gather_distance.py:163",
+        launches=launches["graph_walk"],
+        max_abs_err=max(err, errs["graph_walk"]), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ms_per_hop_of_longest_lane=ms / max(int(hops.max()), 1),
+        shape=dict(queries=len(top), lanes=b, ef=kw["ef"], M=M, dim=D,
+                   index_rows=ix.num_vectors, hops=int(hops.sum()),
+                   max_hops=int(hops.max()),
+                   dist_comps=int(dcs.sum()), footprint=foot))
 
 
 DECODE_32K = dict(batch=128, seq=32_768, kv_heads=8, group=3, head_dim=128,
@@ -2265,6 +2573,10 @@ PTXAS_INSTANCES = {
         "gather_distance", f"seg_gather_tile_kernelILi{dt}ELb{ip}E")
        for dt, name in enumerate(("f32", "fp16"))
        for ip, metric in ((0, "l2"), (1, "ip"))},
+    **{f"graph_walk_kernel<{metric}, {copy}>": (
+        "graph_walk", f"graph_walk_kernelILb{ip}ELb{vec}ELi0EE")
+       for ip, metric in ((0, "l2"), (1, "ip"))
+       for vec, copy in ((1, "16-byte copies"), (0, "4-byte copies"))},
 }
 
 
@@ -2303,6 +2615,7 @@ def dynamic_smem() -> dict:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import graph_walk as gw
     from repro_torch.kernels import masked_distance as md
     lib = cuda_build.load("fused_scan", fs._SIGNATURES)
     out = {}
@@ -2329,6 +2642,16 @@ def dynamic_smem() -> dict:
                 f"{gd.tile_smem_bytes(storage)}; the kernel's layout takes "
                 f"{got}")
         out[f"seg_gather_tile_kernel {storage}"] = got
+    walk = cuda_build.load("graph_walk", gw._SIGNATURES)
+    for D, M, ef, W, vec in ((128, 16, 64, 1, True), (37, 8, 256, 2, False),
+                             (1024, 32, 1024, 32, True)):
+        got = walk.graph_walk_smem_bytes(D, M, ef, W, int(vec))
+        if got != gw.walk_smem_bytes(D, M, ef, W, vec):
+            raise AssertionError(
+                f"graph_walk.walk_smem_bytes{(D, M, ef, W, vec)} is "
+                f"{gw.walk_smem_bytes(D, M, ef, W, vec)}; the kernel's "
+                f"layout takes {got}")
+        out[f"graph_walk D {D} M {M} ef {ef} W {W} vec {vec}"] = got
     return out
 
 
@@ -2358,6 +2681,7 @@ def main() -> int:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import graph_walk as gw
     from repro_torch.kernels import masked_distance as md
 
     t_all = time.perf_counter()
@@ -2401,6 +2725,12 @@ def main() -> int:
     checks["max_abs_err"].update(hop["max_abs_err"])
     checks["gather_distance_tolerance"] = hop["tolerance"]
     checks["gather_distance_random_bitwise"] = hop["random_bitwise"]
+    walk = graph_walk_checks(dev)
+    checks["cases"] += walk["cases"]
+    checks["max_abs_err"].update(walk["max_abs_err"])
+    checks["graph_walk"] = {key: walk[key] for key in (
+        "cases", "lanes", "hops", "max_hops",
+        "planted_fault_lanes_differing", "tolerance")}
     dec = flash_decode_checks(dev)
     checks["cases"] += dec["cases"]
     checks["max_abs_err"].update(dec["max_abs_err"])
@@ -2419,6 +2749,7 @@ def main() -> int:
                 "masked_distance": md.masked_distance,
                 "filtered_topk": ft.filtered_topk,
                 "gather_distance": gd.gather_distance,
+                "graph_walk": gw.graph_walk,
                 "flash_decode": fd.flash_decode}
 
     def counts():
@@ -2450,12 +2781,13 @@ def main() -> int:
         lambda: flat_scan_path(dev, data=data, ctx=ctx, counts=counts,
                                clock=clock))
     (_, graph_eng), at_graph = drive(
-        "graph_path", ("gather_distance", "masked_distance"),
+        "graph_path", ("graph_walk", "masked_distance"),
         lambda: graph_path(dev, data=data, counts=counts, clock=clock))
     launches = dict(at_flat)
     for name in ("masked_distance", "filtered_topk"):
         launches[name] = at_ivf[name] + at_scan[name]
     launches["gather_distance"] = at_graph["gather_distance"]
+    launches["graph_walk"] = at_graph["graph_walk"]
     decode_state, at_decode = drive(
         "decode_path", ("flash_decode",), lambda: decode_path(dev))
     emit("decode_path_numbers", **decode_state["stats"],

@@ -4,6 +4,7 @@
     python3 scripts/profile_port_paths.py          # from the repository root
     python3 scripts/profile_port_paths.py decode   # the decoder only
     python3 scripts/profile_port_paths.py flat     # the flat engines only
+    python3 scripts/profile_port_paths.py graph [ROWS]   # the graph engine
 
 Builds ``chip_smoke.py``'s paper-scale workload (1,000,000 × 128 vectors,
 1,000 queries, one EIS selection at c = 0.2), then the searchers over
@@ -14,6 +15,9 @@ then the engine on the ``graph`` backend over the first 100,000 rows with
 its own selection (``chip_smoke.py``'s phase 4d at its smallest N); then
 ``minitron_4b`` at full width (``chip_smoke.py``'s phase 4e): one
 prefill of a 300-token prompt and one decode step of 8 live slots.
+``graph`` traces the graph engine alone over the first ROWS rows
+(default 200,000, the row count ``chip_smoke.py``'s phase 4d reaches on
+an H100 host), each routed group one launch of the walk kernel.
 Each is warmed with two calls (for a searcher, 1,000-query batches),
 then one call is traced
 with ``torch.profiler`` (CPU and CUDA activities).  One JSON line per
@@ -115,11 +119,22 @@ def main() -> int:
         return 0
     vectors, label_sets, qv, qls = chip_smoke.paper_data(
         chip_smoke.PAPER["n_vectors"])
+    k = chip_smoke.PAPER["k"]
+    if sys.argv[1:2] == ["graph"]:
+        rows = int(sys.argv[2]) if len(sys.argv) > 2 else 200_000
+        graph_eng, built = chip_smoke._graph_engine(
+            dev, (vectors, label_sets, qv, qls), rows)
+        print(json.dumps({"searcher": f"graph engine, {rows} rows",
+                          "queries": len(qls), "indexes": len(
+                              graph_eng.indexes), **built,
+                          **profile(lambda: graph_eng.search_batched(
+                              qv, qls, k), dev)}, default=float), flush=True)
+        print(chip_smoke.nvidia_smi(), flush=True)
+        return 0
     qkeys = observed_query_keys(qls)
     table = GroupTable.build(label_sets, qkeys)
     selection = greedy_eis(table.closure_sizes,
                            chip_smoke.PAPER["elastic_bound"], qkeys)
-    k = chip_smoke.PAPER["k"]
     searchers = {}
     flat_eng = LabelHybridEngine(vectors, label_sets, table, selection, None,
                                  "flat", "l2", {"fused": "auto"}, 0.0,

@@ -31,18 +31,19 @@ reference orders equal distances of a row arbitrarily (``argpartition``),
 ROADMAP C5.  :meth:`GraphIndex.from_reference_state` installs a JAX
 index's adjacency and medoid instead.
 
-Search.  The reference's ``lax.while_loop`` vmapped over the batch
-becomes a torch loop over hops on [bucket, ·] state: per hop the first
-unexpanded candidate of least distance is expanded, its neighbours'
-distances come from ``ops.gather_distance_batched`` (the
-``gather_distance`` kernel on ``"cuda"``, the plain version on
-``"ref"``), and a stable sort keeps the best ``ef`` of the candidate and
-result pools.  Finished lanes freeze (updates are selected per lane, as
-vmap's select does), so a lane's result does not depend on its batch
-neighbours or on how often the host asks whether any lane is still
-running (``sync_every``).  The hop's distances are the Pallas kernel's
-direct form, where the reference's jnp loop uses the norms form
-(ROADMAP C5): the two agree bitwise on integer data.
+Search.  The reference's ``lax.while_loop`` over one lane's state,
+vmapped over the batch, becomes on ``"cuda"`` one launch of the walk
+kernel (``kernels/graph_walk.py``, ``csrc/graph_walk.cu``): a warp a lane
+for its whole walk, pools in shared memory, the visited set a bitmap, the
+hop's distances inside the walk in the ``gather_distance`` kernel's
+direct form.  On ``"ref"`` its plain version runs: a torch loop over hops
+on [bucket, ·] state, a stable sort of both pools a hop, finished lanes
+frozen, so a lane's result depends neither on its batch neighbours nor on
+how often the host asks whether any lane is still running
+(``sync_every``); the kernel equals it lane by lane, bit for bit.  The
+hop's distances are the Pallas kernel's direct form, where the
+reference's jnp loop uses the norms form (ROADMAP C5): the two agree
+bitwise on integer data.
 """
 from __future__ import annotations
 
@@ -53,11 +54,11 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import cuda_build, ops, ref
+from ..kernels import cuda_build, graph_walk, ops, ref
+from ..kernels.graph_walk import SYNC_EVERY
 from .base import bucket_cache, register_index, resolve_device
 
 INF = float("inf")
-SYNC_EVERY = 32            # hops between the host's "any lane running?" reads
 CAND_SLACK = 8             # extra candidates taken before the exact ordering
 CAND_BLOCK_ELEMS = 1 << 28   # [rows, n] distances per candidate block
 PRUNE_DIST_ELEMS = 1 << 25   # [nodes, C, C, 8] partial sums per piece
@@ -385,16 +386,6 @@ class SearchStats:
     dist_comps: np.ndarray  # [Q] int32 — distance computations
 
 
-def _keep_best(d, i, x, ef):
-    """The first ``ef`` of a stable sort of each row of ``d`` (``i`` and
-    ``x`` follow), -0.0 and +0.0 equal, as ``jnp.argsort(stable=True)``
-    orders them."""
-    _, order = torch.sort(d + 0.0, dim=-1, stable=True)
-    order = order[..., :ef]
-    return (torch.gather(d, -1, order), torch.gather(i, -1, order),
-            torch.gather(x, -1, order))
-
-
 def beam_search(ix: "GraphIndex", q, lq, entries, tomb=None, *, k: int,
                 ef: int, strategy: str, backend: str,
                 sync_every: int = SYNC_EVERY):
@@ -404,93 +395,21 @@ def beam_search(ix: "GraphIndex", q, lq, entries, tomb=None, *, k: int,
     no seed) on ``ix.device``; ``tomb`` an optional packed bitmap over
     node ids, which drops nodes from the result pool only: they stay
     navigable (walk but don't return).  Returns (dists [B, k], ids [B, k]
-    int32 — id N ⇒ empty, hops [B], dist_comps [B]).
-
-    Node N is a sink: padded adjacency slots hold it and it is visited
-    from the start, so a pad is never a new neighbour.  Both pools are
-    always ef wide and sorted, so a candidate at +inf never displaces an
-    entry; a lane that has finished therefore keeps its pools through any
-    further hop with its candidates at +inf (marking one more slot
-    expanded cannot restart it), which is how it freezes."""
-    N, M = ix.num_vectors, ix.M
-    B = q.shape[0]
-    dev = q.device
-    adj, lxw = ix._adj_ext, ix._lxw_ext
-    inf = torch.tensor(INF, device=dev)
-    max_steps = 4 * N // max(M, 1) + 64
-
-    def dist(ids):                      # ids < 0 -> +inf
-        return ops.gather_distance_batched(q, ix._xb, ids, metric=ix.metric,
-                                           backend=backend, device=dev)
-
-    def passes(ids):                    # ids in [0, N]
-        return torch.all((lq[:, None, :] & lxw[ids]) == lq[:, None, :],
-                         dim=-1)
-
-    valid_e = entries >= 0
-    seeds = torch.where(valid_e, entries, N)
-    e_d = dist(torch.where(valid_e, entries, -1))
-    e_pass = passes(seeds) & valid_e
-    if tomb is not None:
-        e_pass &= ref.tombstone_mask(tomb, seeds)
-    visited = torch.zeros((B, N + 1), dtype=torch.bool, device=dev)
-    visited[:, N] = True
-    visited.scatter_(1, seeds, True)
-    full_d = torch.full((B, ef), INF, device=dev)
-    full_i = torch.full((B, ef), N, dtype=torch.int64, device=dev)
-    # candidate pool (navigation; seeds always navigable) and result pool
-    # (passing live nodes), both ef wide, sorted in one call
-    seed_x = torch.cat([~valid_e, torch.ones((B, ef), dtype=torch.bool,
-                                             device=dev)], 1)
-    d, i, x = _keep_best(
-        torch.stack([torch.cat([e_d, full_d], 1),
-                     torch.cat([full_d, torch.where(e_pass, e_d, inf)], 1)],
-                    1),
-        torch.stack([torch.cat([seeds, full_i], 1),
-                     torch.cat([full_i, torch.where(e_pass, seeds, N)], 1)],
-                    1),
-        seed_x[:, None, :].expand(-1, 2, -1), ef)
-    pool_d, pool_i, pool_x = d[:, 0], i[:, 0], x[:, 0]
-    res_d, res_i = d[:, 1], i[:, 1]
-    hops = torch.zeros(B, dtype=torch.int32, device=dev)
-    dc = valid_e.sum(1, dtype=torch.int32)
-    no_x = torch.zeros((B, 2, M), dtype=torch.bool, device=dev)
-
-    def running():
-        best, slot = torch.where(pool_x, inf, pool_d).min(dim=1)
-        # an unexpanded candidate could still improve the ef-th result
-        return (hops < max_steps) & torch.isfinite(best) & \
-            (best <= res_d[:, -1]), slot
-
-    while True:
-        for _ in range(sync_every):
-            active, slot = running()
-            u = torch.gather(pool_i, 1, slot[:, None])[:, 0]
-            pool_x.scatter_(1, slot[:, None], True)
-            nbrs = adj[u]                                   # [B, M]
-            nv = ~torch.gather(visited, 1, nbrs)
-            visited.scatter_(1, nbrs, True)
-            fresh = nv & active[:, None]
-            nd = dist(torch.where(fresh, nbrs, -1))
-            npass = passes(nbrs) & nv
-            nres = npass if tomb is None else \
-                npass & ref.tombstone_mask(tomb, nbrs)
-            nav = npass if strategy == "pre" else nv
-            d, i, x = _keep_best(
-                torch.cat([torch.stack([pool_d, res_d], 1),
-                           torch.stack([torch.where(nav, nd, inf),
-                                        torch.where(nres, nd, inf)], 1)], 2),
-                torch.cat([torch.stack([pool_i, res_i], 1),
-                           nbrs[:, None, :].expand(-1, 2, -1)], 2),
-                torch.cat([pool_x[:, None, :].expand(-1, 2, -1), no_x], 2),
-                ef)
-            pool_d, pool_i, pool_x = d[:, 0], i[:, 0], x[:, 0]
-            res_d, res_i = d[:, 1], i[:, 1]
-            hops += active
-            dc += fresh.sum(1, dtype=torch.int32)
-        if not bool(running()[0].any()):
-            break
-    return res_d[:, :k], res_i[:, :k].to(torch.int32), hops, dc
+    int32 — id N ⇒ empty, hops [B], dist_comps [B]).  ``"cuda"`` walks
+    every lane on the card in one launch (``graph_walk``); ``"ref"`` runs
+    its plain version, the torch loop over hops, reading "any lane
+    running?" every ``sync_every`` hops."""
+    if backend not in ops.BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; expected one "
+                         f"of {ops.BACKENDS}")
+    args = (q, lq, entries, ix._xb, ix._adj_ext, ix._lxw_ext, tomb)
+    if backend == "ref":
+        return graph_walk.graph_walk_plain(*args, k=k, ef=ef,
+                                           metric=ix.metric,
+                                           strategy=strategy,
+                                           sync_every=sync_every)
+    return graph_walk.graph_walk(*args, k=k, ef=ef, metric=ix.metric,
+                                 strategy=strategy)
 
 
 @register_index("graph")
@@ -568,10 +487,12 @@ class GraphIndex:
     def _run(self, q, lq, entries, tomb, k, ef, strategy):
         dev = self.device
         q = torch.as_tensor(q, dtype=torch.float32, device=dev).contiguous()
-        lq = torch.as_tensor(lq, dtype=torch.int32, device=dev)
-        entries = torch.as_tensor(entries, device=dev).to(torch.int64)
+        lq = torch.as_tensor(lq, dtype=torch.int32, device=dev).contiguous()
+        entries = torch.as_tensor(entries, device=dev).to(
+            torch.int64).contiguous()
         if tomb is not None:
-            tomb = torch.as_tensor(tomb, dtype=torch.uint8, device=dev)
+            tomb = torch.as_tensor(tomb, dtype=torch.uint8,
+                                   device=dev).contiguous()
         return beam_search(self, q, lq, entries, tomb, k=k,
                            ef=max(ef or self.ef_search, k),
                            strategy=strategy or self.strategy,

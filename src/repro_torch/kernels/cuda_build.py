@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("fused_scan", "gather_distance", "masked_distance",
-           "filtered_topk", "vamana_host", "flash_decode")
+           "filtered_topk", "vamana_host", "flash_decode", "graph_walk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC,-ffp-contract=off",
               "-Xptxas", "-v")

@@ -206,16 +206,17 @@ def gather_distance_plain(q, x, ids, *, metric: str = "l2"):
     ``ids`` [Q, B] -> [Q, B] direct-form distances, ids < 0 -> +inf.
     Each sum runs in order over D, one rounded multiply and one rounded
     add per feature, as the kernel sums: the two agree bitwise on any data,
-    so a graph walk on ``"ref"`` takes the kernel's path."""
+    so a graph walk on ``"ref"`` takes the kernel's path.  The rounded
+    per-feature terms are taken in one pass, then added in order."""
     rows = x[torch.clamp(ids, 0, max(x.shape[0] - 1, 0)).long()]
+    if metric == "ip":
+        terms = rows * q[:, None, :]
+    else:
+        t = q[:, None, :] - rows
+        terms = t * t
     d = torch.zeros(ids.shape, dtype=torch.float32, device=q.device)
     for e in range(q.shape[1]):
-        qe = q[:, None, e]
-        if metric == "ip":
-            d = d + rows[..., e] * qe
-        else:
-            t = qe - rows[..., e]
-            d = d + t * t
+        d = d + terms[..., e]
     if metric == "ip":
         d = -d
     return torch.where(ids >= 0, d, torch.full_like(d, ref.INF))

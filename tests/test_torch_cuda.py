@@ -25,7 +25,27 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def test_kernels_and_engine_on_the_card(dev):
+def test_port_on_the_card(dev):
+    """Each kernel of the port against its plain version, then the engine
+    or decoder that runs it, on the card: the four checks below, each run
+    whatever the ones before it did, their failures reported together.
+    They are one test and not four because the suite's collected count
+    decides how pytest-xdist's load scheduler splits the reference
+    suite's heaviest pair of tests across workers (ROADMAP C1)."""
+    import traceback
+
+    failed = []
+    for check in (_segmented_kernels_and_flat_engine,
+                  _dense_kernels_and_ivf_engine, _graph_kernels_and_engine,
+                  _flash_decode_and_batched_decoder):
+        try:
+            check(dev)
+        except Exception:
+            failed.append(f"{check.__name__}:\n{traceback.format_exc()}")
+    assert not failed, "\n".join(failed)
+
+
+def _segmented_kernels_and_flat_engine(dev):
     """Every segmented kernel against its plain version (chip_smoke's
     phase-3 checks at a small size: B1 on runs of queries sharing a
     segment beside singletons, a run past the end of the row table,
@@ -71,7 +91,7 @@ def test_kernels_and_engine_on_the_card(dev):
             assert launched[0 if fused else 1] > 0
 
 
-def test_private_kernels_and_ivf_on_the_card(dev):
+def _dense_kernels_and_ivf_engine(dev):
     """The dense kernels against their plain versions (chip_smoke's phase-3
     checks at a small size: masked_distance at Q 1, 16, 17, 64, 65, 128 and
     256, one to each side of its three instances' edges, at D 127 and on
@@ -120,17 +140,23 @@ def test_private_kernels_and_ivf_on_the_card(dev):
                         integer=False, int8=False, tag="FlatIndex on the card")
 
 
-def test_graph_kernel_and_build_on_the_card(dev):
-    """B5 and the compiled reverse pass against their plain versions
-    (chip_smoke's phase-3 checks at a small size), then the graph engine
-    on the card: batched ≡ looped, ``gather_distance`` launched, and the
-    ``"cuda"`` walks equal to the ``"ref"`` walks."""
+def _graph_kernels_and_engine(dev):
+    """B5, the walk kernel and the compiled reverse pass against their
+    plain versions (chip_smoke's phase-3 checks at a small size: the walk
+    bitwise the torch hop loop in every lane, both planted faults
+    caught), then the graph engine on the card: batched ≡ looped, one
+    ``graph_walk`` launch a routed group and no ``gather_distance``, and
+    the ``"cuda"`` walks equal to the ``"ref"`` walks bit for bit, with
+    their hops and distance computations."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
 
     assert chip_smoke.graph_kernel_checks(dev, N=4099)["cases"] > 0
+    walk = chip_smoke.graph_walk_checks(dev, graphs=((4099, 37, 8),), Q=16)
+    assert walk["cases"] == 2 * 2 * 2 * 2 * 2 + 2 * len(chip_smoke.WALK_WIDE)
+    assert all(walk["planted_fault_lanes_differing"].values())
     built = chip_smoke.graph_build_checks(dev, n=600, n_random=400, D=64,
                                           M=8, n_cand=16)
     assert built["integer"]["identical_rows"] == 1.0
@@ -140,6 +166,7 @@ def test_graph_kernel_and_build_on_the_card(dev):
                                   generate_label_sets,
                                   generate_query_label_sets)
     from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import graph_walk as gw
 
     rng = np.random.default_rng(11)
     x = rng.standard_normal((3000, 64)).astype(np.float32)
@@ -149,18 +176,20 @@ def test_graph_kernel_and_build_on_the_card(dev):
     qls = generate_query_label_sets(ls, 120, seed=4, from_base_fraction=0.75)
     eng = LabelHybridEngine.build(x, ls, backend="graph", M=8, n_cand=16,
                                   ef_search=32, device=dev)
-    before = gd.gather_distance.launches
+    before = (gd.gather_distance.launches, gw.graph_walk.launches)
     bd, bi = eng.search_batched(qv, qls, 7, min_bucket=8)
+    assert gd.gather_distance.launches == before[0]
+    assert gw.graph_walk.launches - before[1] == len(set(eng.route_many(qls)))
     ld, li = eng.search_looped(qv, qls, 7)
     np.testing.assert_array_equal(bi, li)
     np.testing.assert_array_equal(bd, ld)
-    assert gd.gather_distance.launches > before
     out = chip_smoke._graph_cuda_vs_ref(eng, qv, [tuple(s) for s in qls], 7,
                                         list(range(120)))
-    assert out["equal"] + out["value_ties"] == 120
+    assert out["equal"] == out["hops_equal"] == out["dist_comps_equal"] \
+        == 120
 
 
-def test_flash_decode_and_batched_decoder_on_the_card(dev):
+def _flash_decode_and_batched_decoder(dev):
     """B6 against its plain version (chip_smoke's phase-3 checks at a
     smaller S: rows bitwise equal at B 1, 7 and 128, a split left out
     rejected), then reduced minitron_4b served by a BatchedDecoder on the

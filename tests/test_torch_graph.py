@@ -17,7 +17,11 @@ Tiers:
   * random data (the 10k/500 fixture): recall within 0.01 of the JAX
     engine's and ≥ 95% of queries with identical ids (the rest are walks
     that a near-tie sent apart);
-  * within the port, batched ≡ looped and sync cadence 1 ≡ 32, bitwise."""
+  * within the port, batched ≡ looped and sync cadence 1 ≡ 32, bitwise;
+  * the walk kernel's contract on the CPU: each lane of the torch hop
+    loop (its plain version) alone equals the same lane in a bucket of 8,
+    bitwise, which is what a walk a lane on the card rests on; and the
+    wrapper's raises, which hold without a card."""
 from __future__ import annotations
 
 import importlib.util
@@ -42,7 +46,7 @@ from repro.kernels import ref as jref
 
 # The port is imported by the ``_port`` fixture, not at collection (see
 # test_torch_engine.py: loading torch slows the JAX tests of a worker).
-torch = tops = tref = tgd = pgraph = PortGraph = PortEngine = None
+torch = tops = tref = tgd = tgw = pgraph = PortGraph = PortEngine = None
 pack_tombstones = None
 
 KS = (1, 4, 17)
@@ -50,7 +54,7 @@ KS = (1, 4, 17)
 
 @pytest.fixture(autouse=True, scope="module")
 def _port():
-    global torch, tops, tref, tgd, pgraph, PortGraph, PortEngine
+    global torch, tops, tref, tgd, tgw, pgraph, PortGraph, PortEngine
     global pack_tombstones
     import torch
     from repro_torch.core import LabelHybridEngine as PortEngine
@@ -58,6 +62,7 @@ def _port():
     from repro_torch.index.base import pack_tombstones
     from repro_torch.index.graph import GraphIndex as PortGraph
     from repro_torch.kernels import gather_distance as tgd
+    from repro_torch.kernels import graph_walk as tgw
     from repro_torch.kernels import ops as tops
     from repro_torch.kernels import ref as tref
     # release the JAX programs compiled in this worker before this
@@ -240,6 +245,101 @@ def test_beam_search_matches_reference_on_integer_data(carried):
     sd, si = p.search(qv, lq, 4)
     np.testing.assert_array_equal(bi[:40].numpy(), si)
     np.testing.assert_array_equal(bd[:40].numpy(), sd)
+
+
+def test_walk_lanes_alone_equal_lanes_in_a_bucket(carried):
+    """The walk kernel runs each lane on its own; it equals the torch hop
+    loop because a lane of the loop does not depend on its bucket.  On
+    CPU tensors, a bucket of 8 lanes — three entries each, -1 among them,
+    the last lane a pad (all -1) — through ``beam_search`` on ``"cuda"``
+    (the wrapper, which runs the plain version here) and on ``"ref"``
+    equals each lane searched alone on ``"ref"``: dists (every bit), ids,
+    hops and distance computations.  The four cases run in one test, not
+    as parameters: see ``test_torch_cuda.test_port_on_the_card``."""
+    for case in (("post", "l2", False, "k"), ("pre", "l2", True, 16),
+                 ("post", "ip", True, 16), ("pre", "ip", False, "k")):
+        _walk_lanes_alone_equal_lanes_in_a_bucket(carried, *case)
+
+
+def _walk_lanes_alone_equal_lanes_in_a_bucket(carried, strategy, metric,
+                                              tombstones, ef):
+    j, x, lx, qv, lq = (carried[key] for key in ("j", "x", "lx", "qv", "lq"))
+    p = PortGraph.from_reference_state(
+        x, lx, dict(adjacency=j.adjacency, medoid=j.medoid, M=8,
+                    ef_search=32), metric=metric, device="cpu")
+    k = 4
+    ef = k if ef == "k" else ef
+    rng = np.random.default_rng(12)
+    ent = rng.integers(-len(x) // 2, len(x), (8, 3))
+    ent[:, 0] = p.medoid
+    ent[ent < 0] = -1
+    ent[3, 1] = -1
+    ent[-1] = -1
+    tomb = pack_tombstones(carried["dead"]) if tombstones else None
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    q8, l8, e8 = (t(qv[:8], torch.float32), t(lq[:8], torch.int32),
+                  t(ent, torch.int64))
+    tb = None if tomb is None else t(tomb, torch.uint8)
+    kw = dict(k=k, ef=ef, strategy=strategy)
+
+    def bits(out):              # dists as their bits, ids, hops, dc
+        return [out[0].view(torch.int32), *out[1:]]
+    bucket = bits(pgraph.beam_search(p, q8, l8, e8, tb, backend="cuda",
+                                     **kw))
+    for got, want in zip(bits(pgraph.beam_search(p, q8, l8, e8, tb,
+                                                 backend="ref", **kw)),
+                         bucket):
+        np.testing.assert_array_equal(got, want)
+    for b in range(8):
+        alone = bits(pgraph.beam_search(p, q8[b:b + 1], l8[b:b + 1],
+                                        e8[b:b + 1], tb, backend="ref",
+                                        **kw))
+        for got, want in zip(alone, bucket):
+            np.testing.assert_array_equal(
+                got[0], want[b], err_msg=f"{strategy} {metric} {b}")
+    assert int(bucket[2][-1]) == 0 and int(bucket[3][-1]) == 0
+    assert (bucket[1][-1] == len(x)).all()
+    assert int(bucket[2][:-1].min()) > 0
+
+
+def test_walk_wrapper_raises_on_what_the_kernel_does_not_take():
+    """``graph_walk`` checks its arguments on every device, so these raise
+    without a card: wrong dtypes or layouts, ``ef`` above 1,024, ``M``
+    above 32, more than 32 entries, k above ef, an unknown strategy or
+    metric, and a planted fault asked of a CPU tensor (the faulty
+    instances are the kernel's, behind their own entry)."""
+    N, D, B = 40, 6, 3
+    args = dict(q=torch.zeros((B, D)),
+                lq=torch.zeros((B, 1), dtype=torch.int32),
+                entries=torch.zeros((B, 1), dtype=torch.int64),
+                x=torch.zeros((N, D)),
+                adj=torch.full((N + 1, 4), N, dtype=torch.int64),
+                lxw=torch.zeros((N + 1, 1), dtype=torch.int32))
+    kw = dict(k=2, ef=8)
+    out = tgw.graph_walk(*args.values(), **kw)
+    assert [tuple(o.shape) for o in out] == [(B, 2), (B, 2), (B,), (B,)]
+    bad = [dict(q=args["q"].double()), dict(lq=args["lq"].long()),
+           dict(entries=args["entries"].int()),
+           dict(adj=args["adj"].int()),
+           dict(x=torch.zeros((D, N)).t()),
+           dict(adj=torch.full((N + 1, 33), N, dtype=torch.int64)),
+           dict(entries=torch.zeros((B, 33), dtype=torch.int64))]
+    for change in bad:
+        with pytest.raises(ValueError, match="graph_walk"):
+            tgw.graph_walk(*{**args, **change}.values(), **kw)
+    for change in (dict(ef=1025), dict(k=9), dict(k=0)):
+        with pytest.raises(ValueError, match="graph_walk"):
+            tgw.graph_walk(*args.values(), **{**kw, **change})
+    with pytest.raises(ValueError, match="strategy"):
+        tgw.graph_walk(*args.values(), **kw, strategy="mid")
+    with pytest.raises(ValueError, match="metric"):
+        tgw.graph_walk(*args.values(), **kw, metric="cos")
+    with pytest.raises(ValueError, match="planted"):
+        tgw.graph_walk_planted(*args.values(), **kw, fault=1)
+    assert tgw.walk_smem_bytes(1024, 32, 1024, 32, True) < 160 * 1024
+    assert tgw.walk_smem_bytes(128, 16, 64, 1, True) == 10_704
 
 
 @pytest.fixture(scope="module")
