@@ -9,10 +9,11 @@ Phases, one JSON line each on standard output:
   2. build   — nvcc builds every kernel of ``src/repro_torch/csrc`` into
      ``build/`` (one compiler per source, all started together, while the
      host generates the data); ``-Xptxas -v``'s registers, spills and
-     shared memory of the redesigned B1, B2 (tile), B3, B4 and B6
-     instances and of the graph walk, and their blocks' dynamic shared
-     memory (B1's, B2's and the walk's held against their Python
-     mirrors);
+     shared memory of the redesigned B1, B2 (tile), B3 (five instances
+     and two merges), B4 and B6 instances and of the graph walk, and
+     their blocks' dynamic shared memory (B1's, B2's, B3's and the walk's
+     held against their Python mirrors; B3's blocks an SM on the card at
+     least those its span split counts);
   3. kernels — each kernel against its plain torch version on the card.
      The segmented kernels: f32 / fp16 / int8, l2 / ip, tombstones on and
      off, ragged and empty segments, a tail segment, k' > lmax; the fused
@@ -25,13 +26,19 @@ Phases, one JSON line each on standard output:
      blocks' edges) bitwise its per-pair schedule (``max_qtile=1``) and
      both bitwise the same sum taken in order by torch.  The dense
      kernels (masked_distance, filtered_topk): l2 / ip, N not a multiple
-     of the row tile, ragged Q, masked_distance at Q 1, 16, 17, 64, 65,
-     128 and 256 (its three instances' edges), D 127 and operands at an
-     unaligned base (the tile's 4-byte copies), the empty query mask, an empty
-     filter, k up to the pool's 32, k > N, a tombstone bitmap,
-     filtered_topk's values bitwise masked_distance's, and the same query
-     rows bitwise equal at buckets 1, 8 and 256.  The graph's per-hop
-     gather_distance: l2 / ip, ids < 0, D = 128 and 100, Q = 1 and
+     of the row tile, ragged Q, both kernels at Q 1, 16, 17, 32, 33, 64,
+     65, 128 and 256 (the edges of their instances), D 127 and operands at
+     an unaligned base (the tile's 4-byte copies), the empty query mask, an
+     empty filter, k 1, 10, 32, 33, 100 and 256 (both pool capacities),
+     k > N, a tombstone bitmap, filtered_topk's values bitwise
+     masked_distance's, rows in descending distance order for every
+     query (each row beats the threshold: every tile admits all its rows
+     and overflows the k > 32 buffers), two planted faults in
+     filtered_topk (only a ballot's first
+     survivor enters; the threshold read one slot early) that must fail
+     it, and the same query rows bitwise equal at buckets 1, 8 and 256.
+     The graph's per-hop gather_distance: l2 / ip, ids < 0, D = 128 and
+     100, Q = 1 and
      batches, buckets 1 / 8 / 256; the graph walk kernel (graph_walk)
      against the torch hop loop, every lane's dists, ids, hops and
      distance computations bitwise, on graphs of 4,099 rows (D 37, M 8
@@ -71,7 +78,8 @@ Phases, one JSON line each on standard output:
      not gated: IVF is approximate), warm QPS and p50/p99;
   4c. the private-copy FlatIndex over all 1,000,000 rows, the
      no-selection PostFiltering scan: recall@10 >= 0.999, search ==
-     search_padded sliced, warm QPS and p50/p99;
+     search_padded sliced, warm QPS and p50/p99; after its launch counts
+     are read, k = 100 against its plain version (up to boundary ties);
   4d. the ``graph`` backend (M 16, n_cand 64, α 1.2, ef 64, post) over
      the data's first 100,000 rows (raised along 200k / 500k / 10^6 while
      a build takes under 30 s and the phase fits its ~5 minutes) with its
@@ -98,7 +106,9 @@ Phases, one JSON line each on standard output:
      Every launch count is set to 0 just before each of 4, 4b, 4c, 4d and
      4e and read just after; each kernel of that path must have launched;
   5. each kernel timed at its path's top-tier shapes beside its plain
-     version and its bound (gather_distance at one hop: [256, 16] ids;
+     version and its bound (the dense kernels' and B1's and B2's
+     operations counted over the pairs that pass the filter;
+     gather_distance at one hop: [256, 16] ids;
      the graph walk over the top graph index's 256-lane bucket beside
      the torch hop loop;
      flash_decode at the decode_32k cell, B 128 × S 32,768 with
@@ -112,8 +122,11 @@ Phases, one JSON line each on standard output:
      (tile against per-pair), and every (Q, L) launch of one unfused f32
      and one int8+rerank batch in both schedules, summed over the batch;
      masked_distance also at the (Q, N) one
-     ivf batch launches most often; the card's clocks, power and
-     temperature after each.
+     ivf batch launches most often; filtered_topk also at the 32-query
+     latency batch ([32, N], k 10) and at k 100 and 256 ([1024, N]), each
+     checked against the plain version, beside masked_distance at its
+     [1024, N] (the same tile; the yardstick); the card's clocks, power
+     and temperature after each.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and the contract line
@@ -123,6 +136,7 @@ beside this file, it exits non-zero before doing anything.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -147,6 +161,10 @@ RTOL, ATOL = 1e-5, 1e-4
 # version: one query per block, tiles of 8 (a shared run split across
 # tiles) and the largest tile
 FUSED_QTILES = (1, 8, 64)
+
+# filtered_topk's k in the checks: both pool capacities (32, 256), their
+# edge and the main path's 10
+FILTERED_TOPK_KS = (1, 10, 32, 33, 100, 256)
 
 PAPER = dict(n_vectors=1_000_000, dim=128, n_labels=32, zipf_a=1.5,
              avg_label_size=3.0, elastic_bound=0.2, k=10)
@@ -493,19 +511,27 @@ def gather_run_checks(dev, *, N=32768, D=128, W=4, Q=96, L=20_000,
 def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
     """The dense kernels (masked_distance, filtered_topk) against their
     plain versions: l2 / ip, N not a multiple of the row tile, ragged Q
-    on both of B3's query tiles (5 and 37 queries), the empty query mask,
-    an empty filter (a label no row holds), k = 1, 10 and 32 (the pool's
-    capacity), k > N, a tombstone bitmap (``ops.filtered_topk``'s composed
-    path); masked_distance at Q 1, 16, 17, 64, 65, 128 and 256 (each of
-    its instances and their edges), and at D 127 and on operands at an
-    unaligned base (the tile's 4-byte copies); filtered_topk's values
-    bitwise those of masked_distance; and the same query rows bitwise
-    equal at buckets 1, 8 and 256."""
+    (5 and 37 queries), the empty query mask, an empty filter (a label no
+    row holds), a label in the last word (filtered_topk tests only the
+    words up to the last one its block's queries set), k = 1, 10, 32,
+    33, 100 and 256 (both pool capacities and their edge), k > N, a
+    tombstone bitmap (``ops.filtered_topk``'s
+    composed path); masked_distance at Q 1, 16, 17, 32, 33, 64, 65, 128
+    and 256 (the edges of its instances and of filtered_topk's), and at D
+    127 and on operands at an unaligned base (the tile's 4-byte copies);
+    filtered_topk's values bitwise those of masked_distance at k 10 and
+    100; rows in descending distance order for every query, so that
+    every row beats the threshold (every tile admits all its rows and
+    overflows the k > 32 buffers; bitwise); filtered_topk's two planted
+    faults, which must
+    fail the check; and the same query rows bitwise equal at buckets 1, 8
+    and 256."""
     import torch
 
     from repro_torch.kernels import filtered_topk as ft
     from repro_torch.kernels import masked_distance as md
     from repro_torch.kernels import ops
+    from repro_torch.kernels.filtered_topk import masked_topk_tail
 
     rng = np.random.default_rng(seed)
     errs = {"masked_distance": 0.0, "filtered_topk": 0.0}
@@ -525,6 +551,9 @@ def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
                 q, lq = _queries(Q, D, W, integer, rng, dev)
                 lq[0] = 0                          # the empty query mask
                 lq[-1, 0] = 1 << 30                # no row (0 / 1) holds it
+                # a label in the last word: B3's first query tile tests
+                # every word, at Q 37 its second only the first
+                lq[1, W - 1] = 1
                 for metric in ("l2", "ip"):
                     tag = f"n={n} Q={Q} {metric} int={integer}"
                     kd = md.masked_distance(q, x, lq, lx, metric=metric)
@@ -535,7 +564,7 @@ def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
                                  int8=False, tag=f"masked_distance {tag}"))
                     if not torch.isinf(kd[-1]).all():
                         raise AssertionError(f"{tag}: empty filter passed")
-                    for k in (1, 10, 32):
+                    for k in FILTERED_TOPK_KS:
                         kv, ki = ft.filtered_topk(q, x, lq, lx, k=k,
                                                   metric=metric)
                         pv, pi = ft.filtered_topk_plain(q, x, lq, lx, k=k,
@@ -573,24 +602,33 @@ def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
             x = np.rint(x * 4).astype(np.float32)
         x = t(x)
         lx = t((rng.random((N, W)) < 0.7).astype(np.int32))
-        for Q in (1, 16, 17, 64, 65, 128, 256):
+        for Q in (1, 16, 17, 32, 33, 64, 65, 128, 256):
             q, lq = _queries(Q, D, W, integer, rng, dev)
             for metric in ("l2", "ip"):
                 tag = f"masked_distance Q={Q} {metric} int={integer}"
                 kd = md.masked_distance(q, x, lq, lx, metric=metric)
+                pd = md.masked_distance_plain(q, x, lq, lx, metric=metric)
                 errs["masked_distance"] = max(
                     errs["masked_distance"],
-                    _compare(kd, None,
-                             md.masked_distance_plain(q, x, lq, lx,
-                                                      metric=metric),
-                             None, integer=integer, int8=False, tag=tag))
-                kv, ki = ft.filtered_topk(q, x, lq, lx, k=10, metric=metric)
-                fin = torch.isfinite(kv)
-                at = torch.gather(kd, 1, torch.clamp(ki, max=N - 1).long())
-                if not torch.equal(at[fin], kv[fin]):
-                    raise AssertionError(f"{tag}: filtered_topk disagrees "
-                                         f"with masked_distance")
-                cases += 1
+                    _compare(kd, None, pd, None, integer=integer, int8=False,
+                             tag=tag))
+                for k in (10, 100):   # both pool capacities' instances
+                    kv, ki = ft.filtered_topk(q, x, lq, lx, k=k,
+                                              metric=metric)
+                    pv, pi = masked_topk_tail(pd, None, N, k=k)
+                    errs["filtered_topk"] = max(
+                        errs["filtered_topk"],
+                        _compare(kv, ki, pv, pi, integer=integer, int8=False,
+                                 tag=f"filtered_topk Q={Q} k={k} {metric} "
+                                     f"int={integer}"))
+                    fin = torch.isfinite(kv)
+                    at = torch.gather(kd, 1,
+                                      torch.clamp(ki, max=N - 1).long())
+                    if not torch.equal(at[fin], kv[fin]):
+                        raise AssertionError(f"{tag} k={k}: filtered_topk "
+                                             f"disagrees with "
+                                             f"masked_distance")
+                    cases += 1
     # the tile's 4-byte copies: D 127 (D % 4 != 0), and D 128 in
     # contiguous views one float into their buffers (bases not 16-byte
     # aligned), at Q 1, 17 and 65 (one query tile of each instance)
@@ -629,6 +667,8 @@ def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
                         raise AssertionError(f"{tag}: filtered_topk "
                                              f"disagrees with masked_distance")
                     cases += 1
+    out = _filtered_topk_overflow_and_faults(dev, N=N, D=D, W=W, rng=rng)
+    cases += out.pop("cases")
     # batch independence: bucket 1, 8 and 256 rows bitwise equal
     x = t(rng.standard_normal((N, D)).astype(np.float32))
     lx = t((rng.random((N, W)) < 0.7).astype(np.int32))
@@ -645,10 +685,91 @@ def dense_kernel_checks(dev, *, N=20011, D=128, W=4, seed=2):
             if not all(torch.equal(a, c[:b]) for a, c in zip(part, top)):
                 raise AssertionError(f"filtered_topk bucket {b} != 256")
         cases += 1
-    return dict(cases=cases, max_abs_err=errs,
+    return dict(cases=cases, max_abs_err=errs, filtered_topk=out,
                 tolerance=f"integer data: bitwise; random data: rtol {RTOL} "
                           f"atol {ATOL}, positions up to ties; buckets 1 / 8 "
                           f"/ 256: bitwise")
+
+
+def _filtered_topk_overflow_and_faults(dev, *, N, D, W, rng):
+    """filtered_topk on rows in descending distance order for every query
+    (l2: zero queries and ‖x_j‖² = (N − j)²; ip: queries e_0 and x_j[0] =
+    j + 1), every row passing every filter: each row beats its query's
+    threshold, so every tile admits all its rows (and overflows the k > 32
+    buffers); integer values, held bitwise at Q 5 and 200 for k 10, 32,
+    100 and 256.  Then
+    the planted faults (``ft.PLANTED_FAULTS``) at Q 200, k 10, on those
+    rows, on integer random rows and on rows that arrive at rank k − 1 of
+    the pool (l2, zero queries: rows 0–8 nearest, rows 9–127 in
+    descending order behind them, inside the first span, which is at
+    least 128 rows; every other row far): each must change at least one
+    query's result, where the shipped kernel changes none."""
+    import torch
+
+    from repro_torch.kernels import filtered_topk as ft
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cases = 0
+    lx = t(np.ones((N, W), np.int32))
+    desc = {}
+    for metric in ("l2", "ip"):
+        x = np.zeros((N, D), np.float32)
+        x[:, 0] = (np.arange(N, 0, -1) if metric == "l2"
+                   else np.arange(1, N + 1))
+        q = np.zeros((200, D), np.float32)
+        if metric == "ip":
+            q[:, 0] = 1.0
+        desc[metric] = (t(q), t(x), t(np.zeros((200, W), np.int32)), lx)
+        for Q in (5, 200):
+            args = tuple(a[:Q] if i in (0, 2) else a
+                         for i, a in enumerate(desc[metric]))
+            for k in (10, 32, 100, 256):
+                kv, ki = ft.filtered_topk(*args, k=k, metric=metric)
+                pv, pi = ft.filtered_topk_plain(*args, k=k, metric=metric)
+                _compare(kv, ki, pv, pi, integer=True, int8=False,
+                         tag=f"filtered_topk descending rows Q={Q} k={k} "
+                             f"{metric}")
+                if not torch.equal(ki[:, 0], torch.full_like(ki[:, 0],
+                                                             N - 1)):
+                    raise AssertionError("descending rows: the last row is "
+                                         "not first")
+                cases += 1
+    xr = np.rint(rng.standard_normal((N, D)) * 4).astype(np.float32)
+    lxr = t((rng.random((N, W)) < 0.7).astype(np.int32))
+    qr, lqr = _queries(200, D, W, True, rng, dev)
+    xk = np.zeros((N, D), np.float32)
+    xk[:, 0] = 1000 + np.arange(N)
+    xk[:9, 0] = np.arange(9)
+    xk[9:128, 0] = 9 + np.arange(128 - 9, 0, -1)
+    inputs = {"descending rows, l2": (desc["l2"], "l2"),
+              "rows at rank k - 1, l2": ((desc["l2"][0], t(xk),
+                                          desc["l2"][2], lx), "l2"),
+              "integer random rows, l2": ((qr, t(xr), lqr, lxr), "l2"),
+              "integer random rows, ip": ((qr, t(xr), lqr, lxr), "ip")}
+    changed = {}
+    for fault in ft.PLANTED_FAULTS:
+        for name, (args, metric) in inputs.items():
+            pv, pi = ft.filtered_topk_plain(*args, k=10, metric=metric)
+            for planted in (False, True):
+                kv, ki = (ft.filtered_topk_planted(*args, k=10,
+                                                   metric=metric, fault=fault)
+                          if planted else ft.filtered_topk(*args, k=10,
+                                                           metric=metric))
+                same = (kv == pv).all(1) & (ki == pi).all(1)
+                n_changed = int((~same).sum())
+                if planted:
+                    changed[f"fault {fault} on {name}"] = n_changed
+                elif n_changed:
+                    raise AssertionError(f"filtered_topk on {name}: "
+                                         f"{n_changed} queries differ")
+            cases += 1
+        if not any(n for key, n in changed.items()
+                   if key.startswith(f"fault {fault} ")):
+            raise AssertionError(f"filtered_topk planted fault {fault} "
+                                 f"({ft.PLANTED_FAULTS[fault]}) passed the "
+                                 f"check")
+    return dict(cases=cases, planted_fault_queries_changed=changed)
 
 
 def graph_kernel_checks(dev, *, N=20011, seed=4):
@@ -1334,6 +1455,27 @@ def flat_scan_path(dev, *, data, ctx, counts, clock):
     if recall < 0.999:
         raise AssertionError(f"FlatIndex: recall@10 {recall} < 0.999")
     return res, flat
+
+
+def flat_index_k100(flat, data):
+    """Phase 4c's check after the path's launch counts are read: the
+    FlatIndex at k = 100 (the kernel's larger pools) against its plain
+    version."""
+    import torch
+
+    from repro_torch.core import encode_many, masks_to_int32_words
+
+    _, _, qv, qls = data
+    qw = masks_to_int32_words(encode_many(qls))
+    plain = copy.copy(flat)
+    plain.kernel_backend = "ref"
+    kd, ki = flat.search(qv, qw, 100)
+    pd, pi = plain.search(qv, qw, 100)
+    err = _compare(torch.from_numpy(kd), torch.from_numpy(ki),
+                   torch.from_numpy(pd), torch.from_numpy(pi), integer=False,
+                   int8=False, tag="FlatIndex k=100 against its plain version")
+    emit("flat_scan_k100", max_abs_err_vs_plain=err,
+         positions_equal_to_plain=float(np.mean(ki == pi)))
 
 
 GRAPH = dict(M=16, n_cand=64, alpha=1.2, ef_search=64, strategy="post")
@@ -2167,12 +2309,28 @@ def gather_run_sweep(clock, args, seed=7):
                 runs=out, card_state=nvidia_smi(CARD_STATE))
 
 
-def _dense_bound(Q: int, N: int, D: int, W: int, out_bytes: int):
-    """Bound of a dense filtered pass: each input read once and the
-    output written once; Q·N·(2D + 3) flops for the norms-form distances
-    plus 2D for each norm."""
-    nbytes = 4 * (Q + N) * (D + W) + out_bytes
-    return _bound(nbytes, Q * N * (2 * D + 3) + 2 * D * (Q + N))
+def _dense_bound(q, x, lq, lx, out_bytes: int, chunk: int = 32):
+    """Bound of a dense filtered pass on these inputs, counted as B1's and
+    B2's are: the queries and their label words read once, each row's
+    label words that some query sets once (the rest pass every row), each
+    row that passes some query's filter once, the output written once;
+    2D + 3 flops a passing pair for the norms-form distance (the others'
+    values are +inf or never kept) and 2D for each norm read.  Returns
+    (ms, by, passing pairs, rows passing some filter)."""
+    import torch
+    (Q, D), (N, W) = q.shape, lx.shape
+    words = torch.nonzero((lq != 0).any(0)).flatten()
+    lqw, lxw = lq[:, words], lx[:, words]
+    pairs, rows_any = 0, torch.zeros(N, dtype=torch.bool, device=lx.device)
+    for i in range(0, Q, chunk):
+        c = lqw[i:i + chunk, None, :]
+        keep = torch.all((c & lxw[None]) == c, dim=-1)
+        pairs += int(keep.sum())
+        rows_any |= keep.any(0)
+    rows = int(rows_any.sum())
+    nbytes = 4 * Q * (D + W) + 4 * N * len(words) + 4 * D * rows + out_bytes
+    return _bound(nbytes, pairs * (2 * D + 3) + 2 * D * (Q + rows)) + (
+        pairs, rows)
 
 
 def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
@@ -2214,8 +2372,8 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
     ms = clock.ms(lambda: md.masked_distance(*args))
     plain_ms = clock.ms(lambda: md.masked_distance_plain(*args), max_reps=2)
     Q, D = qp.shape
-    N, W = ix._lxw.shape
-    bound_ms, bound_by = _dense_bound(Q, N, D, W, 4 * Q * N)
+    N = ix._lxw.shape[0]
+    bound_ms, bound_by, pairs, _ = _dense_bound(*args, 4 * Q * N)
     top_state = nvidia_smi(CARD_STATE)
     del kd
     # the (Q, N) the ivf engine launches most often in one batch (its
@@ -2230,7 +2388,7 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
                      md.masked_distance_plain(*margs, **mkw), None,
                      integer=False, int8=False,
                      tag=f"masked_distance at {key}")
-    m_bound, m_by = _dense_bound(key[0], key[1], D, W, 4 * key[0] * key[1])
+    m_bound, m_by, _, _ = _dense_bound(*margs, 4 * key[0] * key[1])
     most = dict(q_bucket=key[0], rows=key[1], launches_in_one_batch=n_key,
                 distinct_shapes_in_one_batch=len(log.counts),
                 ms=clock.ms(lambda: md.masked_distance(*margs, **mkw)),
@@ -2248,7 +2406,8 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
         shape=dict(queries=len(top), q_bucket=Q, rows=N, dim=D,
-                   card_state=top_state, most_launched=most)))
+                   pairs_passing=pairs, card_state=top_state,
+                   most_launched=most)))
 
     k = PAPER["k"]
     qp, lp = padded(list(range(len(qls))))
@@ -2261,11 +2420,12 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
     plain_ms = clock.ms(lambda: ft.filtered_topk_plain(*args, k=k),
                         max_reps=1)
     Q, D = qp.shape
-    N, W = flat.label_words.shape
-    span, splits = ft.span_split(Q, N, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    bound_ms, bound_by = _dense_bound(Q, N, D, W, 8 * Q * k)
+    N = flat.label_words.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    span, splits = _span_split(Q, N, sms, k)
+    bound_ms, bound_by, pairs, rows = _dense_bound(*args, 8 * Q * k)
     ft_state = nvidia_smi(CARD_STATE)
+    shapes = filtered_topk_shapes(clock, args, k, sms)
     out.append(dict(
         name="filtered_topk", route="cuda",
         source="src/repro_torch/csrc/filtered_topk.cu",
@@ -2275,7 +2435,69 @@ def time_dense_kernels(ivf_eng, flat, ctx, clock, launches, errs):
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
         shape=dict(queries=len(qls), q_bucket=Q, rows=N, dim=D, k=k,
-                   span_per_block=span, splits=splits, card_state=ft_state)))
+                   pairs_passing=pairs, pairs_passing_share=pairs / (Q * N),
+                   rows_passing_some_filter=rows,
+                   query_tile=ft.query_tile(Q, k), span_per_block=span,
+                   splits=splits, card_state=ft_state, **shapes)))
+    return out
+
+
+def _blocks_per_sm(Q, k):
+    """filtered_topk's blocks an SM at (Q, k), as its wrapper reads them
+    from the library."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import filtered_topk as ft
+    return ft.blocks_per_sm(cuda_build.load("filtered_topk", ft._SIGNATURES),
+                            Q, k)
+
+
+def _span_split(Q, N, sms, k):
+    """filtered_topk's (span, splits) at (Q, k), as its wrapper picks
+    them."""
+    from repro_torch.kernels import filtered_topk as ft
+    return ft.span_split(Q, N, sms, k, _blocks_per_sm(Q, k))
+
+
+def filtered_topk_shapes(clock, args, k, sms):
+    """filtered_topk's other shapes beside their bounds, each checked
+    against the plain version first: the 32-query latency batch ([32, N],
+    k 10) and k 100 and 256 at the whole batch ([1024, N]); and the
+    yardstick, masked_distance at the same [1024, N] (the same tile, and a
+    [Q, N] output B3 does not write)."""
+    from repro_torch.kernels import filtered_topk as ft
+    from repro_torch.kernels import masked_distance as md
+
+    q, x, lq, lx = args
+    Q, N = q.shape[0], x.shape[0]
+    out = {}
+    pv, pi = ft.filtered_topk_plain(*args, k=256)
+    for name, a, kk in (("q32", (q[:32], x, lq[:32], lx), k),
+                        ("k100", args, 100), ("k256", args, 256)):
+        kv, ki = ft.filtered_topk(*a, k=kk)
+        if name == "q32":
+            wv, wi = ft.filtered_topk_plain(*a, k=kk)
+        else:
+            wv, wi = pv[:, :kk], pi[:, :kk]
+        err = _compare(kv, ki, wv, wi, integer=False, int8=False,
+                       tag=f"filtered_topk {name}")
+        del kv, ki
+        nq = a[0].shape[0]
+        bound_ms, bound_by, pairs, _ = _dense_bound(*a, 8 * nq * kk)
+        span, splits = _span_split(nq, N, sms, kk)
+        out[f"filtered_topk_{name}"] = dict(
+            queries=nq, k=kk, ms=clock.ms(lambda a=a, kk=kk: ft.filtered_topk(
+                *a, k=kk)), bound_ms=bound_ms, bound_by=bound_by,
+            pairs_passing=pairs, max_abs_err=err,
+            query_tile=ft.query_tile(nq, kk),
+            blocks_per_sm=_blocks_per_sm(nq, kk), span_per_block=span,
+            splits=splits, card_state=nvidia_smi(CARD_STATE))
+    del pv, pi
+    bound_ms, bound_by, _, _ = _dense_bound(*args, 4 * Q * N)
+    out["masked_distance_same_shape"] = dict(
+        queries=Q, ms=clock.ms(lambda: md.masked_distance(*args)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        card_state=nvidia_smi(CARD_STATE))
+    emit("filtered_topk_shapes", **out)
     return out
 
 
@@ -2549,11 +2771,20 @@ def time_decode_kernel(dev, clock, launches, errs, seed=12):
 # masked_distance's instances (queries × rows a block, blocks an SM)
 MASKED_DISTANCE_INSTANCES = ((16, 128, 2), (64, 128, 2), (128, 64, 3))
 
+# filtered_topk's partial-kernel instances (queries × rows a block, pool
+# capacity), each compiled for three blocks an SM (ft.TILE_BLOCKS_PER_SM),
+# and a (Q, k) that picks each
+FILTERED_TOPK_INSTANCES = ((128, 64, 32), (32, 128, 32), (16, 128, 32),
+                           (32, 128, 256), (16, 128, 256))
+FILTERED_TOPK_PICKS = {(128, 32): (1024, 10), (32, 32): (32, 10),
+                       (16, 32): (1, 10), (32, 256): (1024, 100),
+                       (16, 256): (1, 256)}
+
 # the kernel instances whose -Xptxas -v figures phase 2 reports by name:
 # B6 as minitron_4b runs it (bf16, Dh 128, G 3 -> MAXG 4), B1's query-tile
 # kernel and its one-query kernel for f32 / l2 without tombstones, B4's
-# three instances and B3's large one (l2), B2's tile kernel by storage
-# (f32, f16: gather_distance.TILE_STORAGES)
+# three instances, B3's five and its two merges (l2), B2's tile kernel by
+# storage (f32, f16: gather_distance.TILE_STORAGES)
 PTXAS_INSTANCES = {
     "flash_decode_partial<bf16, 128, 4>": (
         "flash_decode", "flash_decode_partialI13__nv_bfloat16Li128ELi4E"),
@@ -2567,8 +2798,13 @@ PTXAS_INSTANCES = {
         "masked_distance",
         f"masked_distance_kernelILi{bq}ELi{bn}ELi{minb}ELb1E")
        for bq, bn, minb in MASKED_DISTANCE_INSTANCES},
-    "filtered_topk_partial<64, l2>": (
-        "filtered_topk", "filtered_topk_partialILi64ELb1E"),
+    **{f"filtered_topk_partial<{bq} x {bn}, k <= {kcap}, l2>": (
+        "filtered_topk",
+        f"filtered_topk_partialILi{bq}ELi{bn}ELi3ELi{kcap}ELb1ELi0EE")
+       for bq, bn, kcap in FILTERED_TOPK_INSTANCES},
+    **{f"filtered_topk_merge<k <= {kcap}>": (
+        "filtered_topk", f"filtered_topk_mergeILi{kcap}EE")
+       for kcap in (32, 256)},
     **{f"seg_gather_tile_kernel<{name}, {metric}>": (
         "gather_distance", f"seg_gather_tile_kernelILi{dt}ELb{ip}E")
        for dt, name in enumerate(("f32", "fp16"))
@@ -2580,12 +2816,15 @@ PTXAS_INSTANCES = {
 }
 
 
-def ptxas_figures(build_dir) -> dict:
-    """Registers, spills and shared memory of ``PTXAS_INSTANCES`` from the
-    compiler logs (``-Xptxas -v``) that the build keeps."""
+def ptxas_figures(build_dir, sources=None) -> dict:
+    """Registers, spills and shared memory of ``PTXAS_INSTANCES`` (of
+    ``sources`` only, if given) from the compiler logs (``-Xptxas -v``)
+    that the build keeps."""
     import re
     out = {}
     for label, (source, needle) in PTXAS_INSTANCES.items():
+        if sources is not None and source not in sources:
+            continue
         fn, fig = None, {}
         for line in (build_dir / f"{source}.log").read_text().splitlines():
             m = re.search(r"(?:entry function|Function properties for) "
@@ -2609,9 +2848,11 @@ def ptxas_figures(build_dir) -> dict:
 
 def dynamic_smem() -> dict:
     """Dynamic shared memory of the redesigned kernels' blocks, as the
-    compiled libraries size them; the Python copies of the fused scan's
-    and the gather tile's layouts must agree."""
+    compiled libraries size them (and filtered_topk's blocks an SM); the
+    Python copies of the fused scan's and the gather tile's layouts must
+    agree."""
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import filtered_topk as ft
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels import gather_distance as gd
@@ -2633,6 +2874,17 @@ def dynamic_smem() -> dict:
     dist = cuda_build.load("masked_distance", md._SIGNATURES)
     for bq, bn, _ in MASKED_DISTANCE_INSTANCES:
         out[f"dense tile {bq} x {bn}"] = dist.masked_distance_smem_bytes(bq)
+    topk = cuda_build.load("filtered_topk", ft._SIGNATURES)
+    for (bq, bn, kcap) in FILTERED_TOPK_INSTANCES:
+        Q, k0 = FILTERED_TOPK_PICKS[(bq, kcap)]
+        if ft.query_tile(Q, k0) != bq:
+            raise AssertionError(f"filtered_topk.query_tile({Q}, {k0}) is "
+                                 f"{ft.query_tile(Q, k0)}, not {bq}")
+        for k in sorted({k0, kcap, 1 if kcap == 32 else 33}):
+            # the blocks an SM the span split aims at (the occupancy API)
+            out[f"filtered_topk_partial {bq} x {bn} k {k}"] = dict(
+                bytes=topk.filtered_topk_smem_bytes(Q, k),
+                blocks_per_sm=ft.blocks_per_sm(topk, Q, k))
     gather = cuda_build.load("gather_distance", gd._SIGNATURES)
     for code, storage in enumerate(gd.TILE_STORAGES):
         got = gather.seg_gather_smem_bytes(code)
@@ -2780,6 +3032,7 @@ def main() -> int:
         "flat_scan_path", ("filtered_topk",),
         lambda: flat_scan_path(dev, data=data, ctx=ctx, counts=counts,
                                clock=clock))
+    flat_index_k100(flat, data)
     (_, graph_eng), at_graph = drive(
         "graph_path", ("graph_walk", "masked_distance"),
         lambda: graph_path(dev, data=data, counts=counts, clock=clock))

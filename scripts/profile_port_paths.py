@@ -5,6 +5,7 @@
     python3 scripts/profile_port_paths.py decode   # the decoder only
     python3 scripts/profile_port_paths.py flat     # the flat engines only
     python3 scripts/profile_port_paths.py graph [ROWS]   # the graph engine
+    python3 scripts/profile_port_paths.py flatindex      # the FlatIndex
 
 Builds ``chip_smoke.py``'s paper-scale workload (1,000,000 × 128 vectors,
 1,000 queries, one EIS selection at c = 0.2), then the searchers over
@@ -15,6 +16,8 @@ then the engine on the ``graph`` backend over the first 100,000 rows with
 its own selection (``chip_smoke.py``'s phase 4d at its smallest N); then
 ``minitron_4b`` at full width (``chip_smoke.py``'s phase 4e): one
 prefill of a 300-token prompt and one decode step of 8 live slots.
+``flatindex`` traces the private-copy ``FlatIndex`` over every row alone
+(one ``filtered_topk`` launch a batch, and its merge).
 ``graph`` traces the graph engine alone over the first ROWS rows
 (default 200,000, the row count ``chip_smoke.py``'s phase 4d reaches on
 an H100 host), each routed group one launch of the walk kernel.
@@ -120,6 +123,16 @@ def main() -> int:
     vectors, label_sets, qv, qls = chip_smoke.paper_data(
         chip_smoke.PAPER["n_vectors"])
     k = chip_smoke.PAPER["k"]
+    if sys.argv[1:] == ["flatindex"]:
+        flat = FlatIndex(vectors, masks_to_int32_words(
+            encode_many(label_sets)), device=dev)
+        qw = masks_to_int32_words(encode_many(qls))
+        print(json.dumps({"searcher": "FlatIndex, all rows",
+                          "queries": len(qls), **profile(
+                              lambda: flat.search(qv, qw, k), dev)},
+                         default=float), flush=True)
+        print(chip_smoke.nvidia_smi(), flush=True)
+        return 0
     if sys.argv[1:2] == ["graph"]:
         rows = int(sys.argv[2]) if len(sys.argv) > 2 else 200_000
         graph_eng, built = chip_smoke._graph_engine(

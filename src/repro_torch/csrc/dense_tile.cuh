@@ -38,7 +38,9 @@
 // accumulators in order e, e+1, e+2, e+3 (at 128 × 64: 12 loads per 128
 // FMAs).  ‖x‖² (threads t < BN) and ‖q‖² (the next BQ threads) are summed
 // once per block from the same stages.  The labels ride in the first
-// copy group.  The block's shared memory (Smem<BQ, BN>) is dynamic:
+// copy group: the first Wt ≤ W words of each label row (W is the rows'
+// pitch), which the caller may cut to the last word that is nonzero in
+// some query of the tile (a query word of zero passes every row).  The block's shared memory (Smem<BQ, BN>) is dynamic:
 // callers opt in above 48 KB.
 #pragma once
 
@@ -132,6 +134,8 @@ __device__ __forceinline__ void stage(const float* __restrict__ q,
 // The tile of queries [q0, q0 + BQ) ∩ [0, Q) against rows [n0, n0 + BN) ∩
 // [0, n_end): d[a][b] holds query q0 + ty + 16·a against row n0 + tx + 16·b
 // (+inf for rows past n_end; entries of queries past Q are never read).
+// Label words [Wt, W) are not tested: they must be zero in every query of
+// the tile (Wt = W tests them all).
 // Every thread of the block must call it.  It synchronizes first of all,
 // before it overwrites the shared buffers, and last, after the ring's
 // last reader: a caller may write s.u.d as soon as it returns.
@@ -140,8 +144,8 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
                                      const float* __restrict__ x,
                                      const int* __restrict__ lq,
                                      const int* __restrict__ lx, int Q,
-                                     int n_end, int D, int W, int q0, int n0,
-                                     bool vec, Smem<BQ, BN>& s,
+                                     int n_end, int D, int W, int Wt, int q0,
+                                     int n0, bool vec, Smem<BQ, BN>& s,
                                      float (&d)[BQ / 16][BN / 16]) {
   static_assert(BQ + BN <= kThreads, "a thread per row and query norm");
   constexpr int TQ = BQ / 16, TN = BN / 16;
@@ -158,13 +162,13 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
 
   __syncthreads();  // the previous user of s is done
   // the labels ride in the first group
-  for (int i = t; i < BQ * W; i += kThreads) {
-    const int r = i / W, w = i % W, qi = q0 + r;
+  for (int i = t; i < BQ * Wt; i += kThreads) {
+    const int r = i / Wt, w = i % Wt, qi = q0 + r;
     cp_async4(&s.lq[r][w], qi < Q ? lq + static_cast<long long>(qi) * W + w
                                   : lq, qi < Q);
   }
-  for (int i = t; i < BN * W; i += kThreads) {
-    const int r = i / W, w = i % W, n = n0 + r;
+  for (int i = t; i < BN * Wt; i += kThreads) {
+    const int r = i / Wt, w = i % Wt, n = n0 + r;
     cp_async4(&s.lx[r][w], n < n_end ? lx + static_cast<long long>(n) * W + w
                                      : lx, n < n_end);
   }
@@ -248,7 +252,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ q,
     for (int b = 0; b < TN; ++b) {
       const int c = tx + 16 * b;
       bool keep = n0 + c < n_end;
-      for (int w = 0; w < W; ++w)
+      for (int w = 0; w < Wt; ++w)
         keep = keep && ((s.lq[r][w] & s.lx[c][w]) == s.lq[r][w]);
       const float v =
           L2 ? scan::l2_norms_form(s.qn[r], acc[a][b], s.xn[c]) : -acc[a][b];

@@ -15,12 +15,15 @@
 // rows alone (batch buckets and B3 agree bitwise); against the plain
 // version, integer data is bitwise and random data within rtol 1e-5.
 //
-// Bound on the card.  2·Q·N·D flops against 4·(Q·N + (Q + N)·(D + W))
-// bytes: at D = 128 the [Q, N] output alone is 4 bytes per 256 flops, so
-// for Q ≥ 16 the operations bound it (67 TFLOP/s f32 on the CUDA cores,
-// which the FMA chains can reach).  At the IVF top tier ([256, 10^6],
-// D = 128) that is about 0.99 ms of operations against 0.31 ms for the
-// 1 GB output and 0.15 ms for the rows.
+// Bound on the card.  Only the pairs that pass the filter need a
+// distance, (2D + 3) flops each; every output is written.  At D = 128 the
+// [Q, N] output is 4 bytes a pair against 259 flops a passing pair, so
+// the operations bound it where more than about a third of the pairs
+// pass (67 TFLOP/s f32 on the CUDA cores, which the FMA chains can
+// reach), the output's bytes below that: at the IVF top tier ([256,
+// 10^6], D = 128) the 1 GB output takes 0.31 ms and the rows 0.15 ms.
+// The tile computes every pair (PERF.md §6 has the bound at the main
+// path's shapes).
 //
 // Design.  One block of 256 threads per [BQ, BN] output tile, three
 // instances: 128 × 64 (8 × 4 outputs a thread, three blocks an SM) for
@@ -56,7 +59,7 @@ __global__ void __launch_bounds__(dense::kThreads, MINB)
   auto& s = *reinterpret_cast<S*>(smem);
   const int q0 = blockIdx.x * BQ, n0 = blockIdx.y * BN;
   float d[BQ / 16][BN / 16];
-  dense::tile<BQ, BN, L2>(q, x, lq, lx, Q, N, D, W, q0, n0, vec, s, d);
+  dense::tile<BQ, BN, L2>(q, x, lq, lx, Q, N, D, W, W, q0, n0, vec, s, d);
   const int t = threadIdx.x, ty = t / 16, tx = t % 16;
 #pragma unroll
   for (int a = 0; a < BQ / 16; ++a)

@@ -16,9 +16,9 @@ neighbours: the plain version sums with a multiply and a reduce over the
 feature axis, the kernel each inner product and norm as one chain of FMAs
 in order over D (``csrc/dense_tile.cuh``).  The two agree bitwise on
 integer data and within rtol 1e-5 on random data.  Bound on the card:
-2·Q·N·D flops at 67 TFLOP/s for Q ≥ 16 (about 0.99 ms at [256, 10^6],
-D 128), the [Q, N] output's bytes below that.  ``ref.masked_distance``
-(the matmul form) stays the oracle.
+the larger of (2D + 3) flops a passing pair at 67 TFLOP/s and the
+[Q, N] output's and the rows' bytes at 3.35 TB/s (the csrc file's
+head).  ``ref.masked_distance`` (the matmul form) stays the oracle.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"masked_distance": [_P] * 5 + [_I] * 5 + [_P],
                "masked_distance_smem_bytes": [_I]}
 MAX_LABEL_WORDS = 8        # csrc/dense_tile.cuh kMaxWords
-ROW_TILE = 128             # csrc/filtered_topk.cu BN: rows per tile
+ROW_TILE = 128             # rows of the dense tiles' largest row tile
 MAX_ROWS = 65_535 * ROW_TILE   # the dense kernels' operand contract
 PLAIN_CHUNK_ELEMS = 1 << 24    # [Q, rows, D] products per plain chunk
 

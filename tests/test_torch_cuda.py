@@ -95,9 +95,11 @@ def _dense_kernels_and_ivf_engine(dev):
     """The dense kernels against their plain versions (chip_smoke's phase-3
     checks at a small size: masked_distance at Q 1, 16, 17, 64, 65, 128 and
     256, one to each side of its three instances' edges, at D 127 and on
-    unaligned operands, filtered_topk bitwise its values), then the ivf engine and the private-copy
-    FlatIndex on the card: batched ≡ looped, launches counted, and the
-    FlatIndex equal to its plain version up to boundary ties."""
+    unaligned operands, filtered_topk bitwise its values at k up to 256,
+    on rows that all beat its thresholds, its planted faults caught), then
+    the ivf engine and the private-copy FlatIndex on the card: batched ≡
+    looped, launches counted, and the FlatIndex at k 10 and 100 equal to
+    its plain version up to boundary ties."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -130,14 +132,16 @@ def _dense_kernels_and_ivf_engine(dev):
 
     lx = masks_to_int32_words(encode_many(ls))
     qw = masks_to_int32_words(encode_many(qls))
-    before = ft.filtered_topk.launches
-    kd, ki = FlatIndex(x, lx, device=dev).search(qv, qw, 10)
-    pd, pi = FlatIndex(x, lx, kernel_backend="ref", device=dev).search(
-        qv, qw, 10)
-    assert ft.filtered_topk.launches > before
-    chip_smoke._compare(torch.from_numpy(kd), torch.from_numpy(ki),
-                        torch.from_numpy(pd), torch.from_numpy(pi),
-                        integer=False, int8=False, tag="FlatIndex on the card")
+    for k in (10, 100):   # both pool capacities
+        before = ft.filtered_topk.launches
+        kd, ki = FlatIndex(x, lx, device=dev).search(qv, qw, k)
+        pd, pi = FlatIndex(x, lx, kernel_backend="ref", device=dev).search(
+            qv, qw, k)
+        assert ft.filtered_topk.launches > before
+        chip_smoke._compare(torch.from_numpy(kd), torch.from_numpy(ki),
+                            torch.from_numpy(pd), torch.from_numpy(pi),
+                            integer=False, int8=False,
+                            tag=f"FlatIndex k={k} on the card")
 
 
 def _graph_kernels_and_engine(dev):

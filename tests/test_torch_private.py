@@ -127,13 +127,60 @@ def test_dense_plain_versions_match_pallas_and_oracles():
             == 5).all()
     with pytest.raises(ValueError, match="kernel backend"):
         tops.masked_distance(q, x, lq, lx, backend="pallas", device="cpu")
+    # the kernel's larger pools (k 100, 256; k > N on the small case)
+    # against a float64 numpy oracle, the empty filter included; past
+    # MAX_K the wrapper raises on the CPU as on the card
+    for metric in ("l2", "ip"):
+        for qq, xx, lqq, lxx in (small[:4], (q, x, lq, lx)):
+            for k in (100, tft.MAX_K):
+                wv, wi = f64_filtered_topk(qq, xx, lqq, lxx, k, metric)
+                for got in (tops.filtered_topk(qq, xx, lqq, lxx, k=k,
+                                               metric=metric, device="cpu"),
+                            tops.filtered_topk(qq, xx, lqq, lxx, k=k,
+                                               metric=metric, backend="cuda",
+                                               device="cpu"),
+                            tft.filtered_topk_plain(t(qq), t(xx), t(lqq),
+                                                    t(lxx), k=k,
+                                                    metric=metric)):
+                    np.testing.assert_array_equal(got[1].numpy(), wi)
+                    np.testing.assert_array_equal(got[0].numpy(), wv)
+                assert np.isinf(wv[-1]).all() and (wi[-1] == len(xx)).all()
+    for k in (0, tft.MAX_K + 1):
+        with pytest.raises(ValueError, match="pool capacity"):
+            tft.filtered_topk(t(q), t(x), t(lq), t(lx), k=k)
+        with pytest.raises(ValueError, match="pool capacity"):
+            tops.filtered_topk(q, x, lq, lx, k=k, backend="cuda",
+                               device="cpu")
+
+
+def f64_filtered_topk(q, x, lq, lx, k, metric):
+    """Float64 numpy oracle of the dense filtered top-k: the direct
+    distance, (value, row) order, (+inf, N) past the passing rows."""
+    q64, x64 = q.astype(np.float64), x.astype(np.float64)
+    if metric == "l2":
+        d = ((q64[:, None, :] - x64[None, :, :]) ** 2).sum(-1)
+    else:
+        d = -(q64 @ x64.T)
+    keep = ((lq[:, None, :] & lx[None, :, :]) == lq[:, None, :]).all(-1)
+    d = np.where(keep, d, np.inf)
+    n = len(x)
+    vals = np.full((len(q), k), np.inf, np.float32)
+    idxs = np.full((len(q), k), n, np.int32)
+    for i in range(len(q)):
+        order = np.lexsort((np.arange(n), d[i]))[:k]
+        order = order[np.isfinite(d[i, order])]
+        vals[i, :len(order)] = d[i, order]
+        idxs[i, :len(order)] = order
+    return vals, idxs
 
 
 def test_dense_plain_versions_do_not_depend_on_the_batch():
     """Random data: a query row's distances are bitwise the same at
     buckets 1, 8 and 64 and across the plain version's row chunks (the
     multiply + reduce form; ``q @ x.T`` drifts, ROADMAP C0), and the
-    query-tiled plain top-k equals the untiled one."""
+    query-tiled plain top-k equals the untiled one.  The kernel's span
+    split (``filtered_topk.span_split``) fills whole waves of the blocks an
+    SM it is given on an H100 (132 SMs) against 10^6 rows."""
     rng = np.random.default_rng(5)
     x = t(rng.standard_normal((700, 32)).astype(np.float32))
     qs = t(rng.standard_normal((64, 32)).astype(np.float32))
@@ -156,6 +203,26 @@ def test_dense_plain_versions_do_not_depend_on_the_batch():
             tmd.PLAIN_CHUNK_ELEMS, tft.PLAIN_TILE_ELEMS = old
         whole = tft.filtered_topk_plain(qs, x, lq, lx, k=10, metric=metric)
         assert all(torch.equal(a, b) for a, b in zip(tiled, whole))
+    n, sms = 10**6, 132
+    for Q in (1, 32, 1000, 1024):
+        for k in (1, 10, 32, 33, 100, tft.MAX_K):
+            # the launch bound's blocks an SM, and two (the card's count
+            # where the pools' shared memory holds fewer)
+            for per_sm in (tft.TILE_BLOCKS_PER_SM, 2):
+                span, splits = tft.span_split(Q, n, sms, k, per_sm)
+                bq = tft.query_tile(Q, k)
+                assert span % tft.ROW_TILE == 0 and splits == -(-n // span)
+                assert (splits - 1) * span < n <= splits * span
+                # one wave: at most the slots, and short of them by less
+                # than one column of query tiles and 2% (the spans are
+                # whole row tiles)
+                slots = per_sm * sms
+                qtiles = -(-Q // bq)
+                blocks = qtiles * splits
+                assert 0.98 * slots - qtiles < blocks <= slots, (Q, k, blocks)
+    # the main path's instance: 128 queries a block, three blocks an SM
+    assert tft.query_tile(1024, 10) == 128 and tft.TILE_BLOCKS_PER_SM == 3
+    assert tft.span_split(1024, n, sms, 10, 3) == (20_480, 49)
 
 
 def test_flat_index_matches_reference():
