@@ -19,7 +19,10 @@ Phases, one JSON line each on standard output:
      off, ragged and empty segments, a tail segment, k' > lmax; the fused
      scan also on runs of queries that share a segment beside singletons
      and a run whose segment runs past the end of the row table, at query
-     tiles 1, 8 and 64, which must agree bitwise; the segmented gather
+     tiles 1, 8 and 64, which must agree bitwise, and on the streaming
+     delta's shape (every query's segment [0, count) of an identity row
+     table, count no multiple of the span, tombstones in the run's tail
+     and past count; no dead or out-of-run slot returned); the segmented gather
      also on runs of queries that list one window (a run of 70 across the
      64-query tile, ragged lens, runs of 9, 3 and 2) beside singletons, its
      tile schedule at 64, 16 and 12 queries a block (runs cut at the
@@ -103,8 +106,28 @@ Phases, one JSON line each on standard output:
      with bf16 softmax weights is reported beside them.  Reported:
      prefill ms, decode ms per step p50/p99, generated tokens/s, weight
      and KV-cache bytes.
-     Every launch count is set to 0 just before each of 4, 4b, 4c, 4d and
-     4e and read just after; each kernel of that path must have launched;
+  4f. (run after 4d, before 4e) streaming at the paper's scale: two
+     ``StreamingEngine``s (f32 and int8+rerank, fused) on phase 4's table
+     and selection, ten rounds of 10,000 inserts (the paper's generator,
+     another seed), 5,000 deletes (4,000 base, 1,000 inserted) and the
+     1,000-query batch — 100,000 delta rows (capacity tier 131,072) and
+     50,000 tombstones pending, under both 0.25 compaction thresholds —
+     then a flush.  Gates: no threshold fired; recall@10 >= 0.999 against
+     the survivors' exact float64 top-k and no dead id; flushed ==
+     pending through the ``id_map`` (bitwise for f32, ROADMAP C3's tier
+     for int8+rerank); ``"cuda"`` == ``"ref"`` on 82 queries at phase 3's
+     tier for random rows (values allclose, ids up to ties: the plain
+     versions sum with torch's reductions), bitwise rows counted.
+     Reported: warm QPS pending and after the flush beside phase 4's
+     static QPS, p50/p99 of 32-query batches, inserted rows/s, deleted
+     ids/s, flush seconds, launches per batch (base tiers and the delta),
+     the delta's capacity and bytes.  Then phase 4b's ivf engine in a
+     stream with 50,000 base deletes pending: no dead id, ``"cuda"`` ==
+     ``"ref"`` up to ties, QPS.  The phase must launch fused_scan,
+     segmented_gather_distance and masked_distance;
+     Every launch count is set to 0 just before each of 4, 4b, 4c, 4d, 4f
+     and 4e and read just after; each kernel of that path must have
+     launched;
   5. each kernel timed at its path's top-tier shapes beside its plain
      version and its bound (the dense kernels' and B1's and B2's
      operations counted over the pairs that pass the filter;
@@ -366,6 +389,57 @@ def kernel_checks(dev, *, N=32768, D=128, W=4, Q=48, lmax=2048, seed=0):
                                 raise AssertionError(f"{tag}: differs from "
                                                      f"query tile 1")
                             cases += 1
+    # the streaming delta's shape: every query's segment is [0, count) of
+    # an identity row table over the capacity tier — one run all queries
+    # share — with count no multiple of the span and tombstones in the
+    # run's tail and past count (the tile model's span and 256)
+    from repro_torch.index.base import pack_tombstones
+    from repro_torch.launch import roofline
+
+    cap, count = 4 * lmax, 3 * lmax + 77
+    ident = torch.arange(cap, dtype=torch.int32, device=dev)
+    for integer in (True, False):
+        for dtype in ("f32", "int8"):
+            A = _arena(dtype, cap, D, W, integer, rng, dev)
+            q, lq = _queries(Q, D, W, integer, rng, dev)
+            dead = rng.random(cap) < 0.05
+            tail = slice(count - 300, min(cap, count + 200))
+            dead[tail] = rng.random(tail.stop - tail.start) < 0.5
+            tomb = torch.from_numpy(pack_tombstones(dead)).to(dev)
+            starts = torch.zeros(Q, dtype=torch.int32, device=dev)
+            lens = torch.full((Q,), count, dtype=torch.int32, device=dev)
+            tc = roofline.fused_scan_tiles(D, cap, dtype, Q, backend="cuda",
+                                           device=dev)
+            for metric in ("l2", "ip"):
+                args = (q, lq, A["ax"], A["alw"], A["axn"], ident, starts,
+                        lens, tomb, A["scales"], A["zeros"])
+                pv, pp = fs.fused_scan_plain(
+                    *args, kp=10, lmax=cap, chunk=512, qtile=16,
+                    metric=metric, dtype=dtype)
+                first = None
+                for span in sorted({256, tc.rows_per_chunk}):
+                    for qtile in FUSED_QTILES:
+                        tag = (f"fused delta {dtype} {metric} span={span} "
+                               f"qtile={qtile} int={integer}")
+                        kv, kp_ = fs.fused_scan_cuda(
+                            *args, kp=10, lmax=cap, span=span, qtile=qtile,
+                            metric=metric, dtype=dtype)
+                        errs["fused_scan"] = max(
+                            errs["fused_scan"],
+                            _compare(kv, kp_, pv, pp, integer=integer,
+                                     int8=dtype == "int8", tag=tag))
+                        live = kp_[torch.isfinite(kv)].long().cpu().numpy()
+                        if (live >= count).any() or dead[live].any():
+                            raise AssertionError(f"{tag}: a dead or "
+                                                 f"out-of-run slot")
+                        if first is None:
+                            first = (kv, kp_)
+                        elif not (torch.equal(kv, first[0])
+                                  and torch.equal(kp_, first[1])):
+                            raise AssertionError(f"{tag}: differs from "
+                                                 f"the first schedule")
+                        cases += 1
+
     # the whole segmented search, every storage spec, fused and unfused,
     # against the same call on host copies (the plain versions)
     rng = np.random.default_rng(seed + 1)
@@ -1326,22 +1400,25 @@ def _serve_numbers(search, qv, qls, k):
                 p99_ms_32=float(np.percentile(lat, 99)) * 1e3)
 
 
-def _ivf_cuda_vs_ref(eng, qv, qls, k, qsel, dev):
+def _ivf_cuda_vs_ref(eng, qv, qls, k, qsel, dev, search=None):
     """The ivf engine's ``"cuda"`` results against the same indexes
-    searched with ``kernel_backend="ref"`` (plain torch on the card).  A
-    query may differ only at a tie: at the top-k boundary (the displaced
-    values agree within the tolerance) or at the probe boundary (the two
-    backends order near-equal centroid distances differently)."""
+    searched with ``kernel_backend="ref"`` (plain torch on the card),
+    through ``search`` (default: the engine's ``search_batched``; a
+    stream over it passes its own).  A query may differ only at a tie: at
+    the top-k boundary (the displaced values agree within the tolerance)
+    or at the probe boundary (the two backends order near-equal centroid
+    distances differently)."""
     import torch
 
     from repro_torch.kernels import ops
 
+    search = search or eng.search_batched
     qs, ls = qv[qsel], [qls[i] for i in qsel]
-    got = eng.search_batched(qs, ls, k)
+    got = search(qs, ls, k)
     for ix in eng.indexes.values():
         ix.kernel_backend = "ref"
     try:
-        want = eng.search_batched(qs, ls, k)
+        want = search(qs, ls, k)
     finally:
         for ix in eng.indexes.values():
             ix.kernel_backend = "cuda"
@@ -1714,6 +1791,257 @@ def graph_path(dev, *, data, counts, clock):
                              f"{len(set(routed))} routed groups (want one "
                              f"walk a group and no gather_distance)")
     return res, eng
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: streaming inserts, deletes and compaction at the paper's scale
+# ---------------------------------------------------------------------------
+
+# ten rounds, each: insert rows from the paper's generator (another seed),
+# delete live base and inserted ids, search the 1,000-query batch
+STREAM_ROUNDS = 10
+STREAM_INSERT = 10_000
+STREAM_DELETE_BASE = 4_000
+STREAM_DELETE_NEW = 1_000
+STREAM_SEED = 101
+IVF_STREAM_DELETES = 50_000
+
+
+def _stream_plan(n):
+    """Each round's inserted rows and the ids it deletes (the same for
+    every engine: no threshold fires, so inserted ids are n, n+1, …)."""
+    from repro_torch.data import VectorLabelDataset
+
+    ds = VectorLabelDataset(n=STREAM_ROUNDS * STREAM_INSERT, dim=PAPER["dim"],
+                            n_labels=PAPER["n_labels"], zipf_a=PAPER["zipf_a"],
+                            avg_size=PAPER["avg_label_size"], seed=STREAM_SEED)
+    rows, ls = ds.generate()
+    rng = np.random.default_rng(STREAM_SEED)
+    base_alive = np.ones(n, bool)
+    new_alive = np.zeros(len(ls), bool)
+    rounds = []
+    for r in range(STREAM_ROUNDS):
+        sl = slice(r * STREAM_INSERT, (r + 1) * STREAM_INSERT)
+        new_alive[sl] = True
+        dead_base = rng.choice(np.flatnonzero(base_alive), STREAM_DELETE_BASE,
+                               replace=False)
+        dead_new = rng.choice(np.flatnonzero(new_alive), STREAM_DELETE_NEW,
+                              replace=False)
+        base_alive[dead_base] = False
+        new_alive[dead_new] = False
+        rounds.append((rows[sl], ls[sl], np.concatenate([dead_base,
+                                                         n + dead_new])))
+    return rows, ls, rounds, base_alive, new_alive
+
+
+def _same_to_tier(got, want, *, bitwise, tag):
+    """Two (dists, ids) host results of one batch: bitwise, or at phase
+    3's tier for random data and int8 (values allclose at rtol 1e-5, ids
+    equal up to boundary ties; ROADMAP C3).  Returns how many rows have
+    equal ids and how many are bitwise equal."""
+    import torch
+
+    same = (got[1] == want[1]).all(1)
+    bits = same & (got[0].view(np.int32) == want[0].view(np.int32)).all(1)
+    out = dict(rows=len(bits), equal_id_rows=int(same.sum()),
+               bitwise_rows=int(bits.sum()))
+    if bitwise:
+        if not bits.all():
+            raise AssertionError(f"{tag}: not bitwise equal ({out})")
+        return dict(out, tier="bitwise")
+    _compare(torch.from_numpy(got[0]), torch.from_numpy(got[1]),
+             torch.from_numpy(want[0]), torch.from_numpy(want[1]),
+             integer=False, int8=True, tag=tag)
+    return dict(out, tier=f"values rtol {RTOL} atol {ATOL}, ids up to ties")
+
+
+def _stream_cuda_vs_ref(se, qv, qls, k, qsel):
+    """The stream with everything pending, searched on ``"cuda"`` and on
+    ``kernel_backend="ref"`` (the plain versions on the card), at phase
+    3's tier: on random rows the plain versions' torch sums round
+    otherwise than the kernels' in-order ones."""
+    qs, ls = qv[qsel], [qls[i] for i in qsel]
+    got = se.search_batched(qs, ls, k)
+    se.base._seg_backend = "ref"
+    try:
+        want = se.search_batched(qs, ls, k)
+    finally:
+        se.base._seg_backend = "cuda"
+    return dict(queries=len(qsel), **_same_to_tier(
+        got, want, bitwise=False, tag="stream cuda vs ref"))
+
+
+def stream_path(dev, *, data, ctx, static, ivf_eng, counts, clock):
+    """Phase 4f: two streaming engines (f32 and int8+rerank, fused) built
+    on phase 4's table and selection, ten rounds of 10,000 inserts, 5,000
+    deletes (4,000 base, 1,000 inserted) and a 1,000-query search, then a
+    flush; and phase 4b's ivf engine wrapped in a stream with 50,000 base
+    deletes pending.  Gates: recall@10 ≥ 0.999 against the survivors'
+    exact top-k and no dead id; pending ≡ flushed (ids through the
+    ``id_map``: bitwise for f32, C3's tier for int8+rerank); ``"cuda"`` ≡
+    ``"ref"`` on 82 queries at phase 3's tier for random rows (ivf up to
+    ties as ``_ivf_cuda_vs_ref``)."""
+    import torch
+
+    from repro_torch.core import (EMPTY_KEY, LabelHybridEngine,
+                                  StreamingEngine, encode_many,
+                                  masks_to_int32_words, recall_at_k)
+    from repro_torch.kernels import ops
+
+    vectors, label_sets, qv, qls = data
+    n, k = len(label_sets), PAPER["k"]
+    t_phase = time.perf_counter()
+    rows, new_ls, rounds, base_alive, new_alive = _stream_plan(n)
+    plan_s = time.perf_counter() - t_phase
+    # phase 4b's 82 queries: the first 64 and 32 of the top index's
+    top = [i for i, key in enumerate(ivf_eng.route_many(qls))
+           if key == EMPTY_KEY]
+    qsel = sorted(set(range(64)) | set(top[:32]))
+    # the survivors' exact top-k, in stream ids
+    surv_ids = np.concatenate([np.flatnonzero(base_alive),
+                               n + np.flatnonzero(new_alive)])
+    surv_x = torch.from_numpy(np.concatenate(
+        [vectors[base_alive], rows[new_alive]])).to(dev)
+    surv_ls = ([s for s, a in zip(label_sets, base_alive) if a]
+               + [s for s, a in zip(new_ls, new_alive) if a])
+    surv_lx = torch.from_numpy(masks_to_int32_words(
+        encode_many(surv_ls))).to(dev)
+    pos = exact_topk(surv_x, surv_lx, qv, qls, k, dev)
+    sentinel = n + len(new_ls)
+    truth = np.where(pos < surv_ids.size,
+                     surv_ids[np.clip(pos, 0, surv_ids.size - 1)], sentinel)
+    dead = np.setdiff1d(np.arange(sentinel), surv_ids)
+    del surv_x, surv_lx
+    out = dict(rounds=STREAM_ROUNDS, inserts_a_round=STREAM_INSERT,
+               deletes_a_round=dict(base=STREAM_DELETE_BASE,
+                                    inserted=STREAM_DELETE_NEW),
+               plan_and_truth_seconds=time.perf_counter() - t_phase,
+               plan_seconds=plan_s, cuda_vs_ref_queries=len(qsel),
+               engines={})
+    for storage in STORAGES:
+        int8 = storage != "f32"
+        name = f"{storage}/fused=auto"
+        eng = LabelHybridEngine(vectors, label_sets, ctx["table"],
+                                ctx["selection"], None, "flat", "l2",
+                                {"fused": "auto"}, ctx["select_seconds"],
+                                storage=storage, device=dev)
+        se = StreamingEngine(eng, build_kwargs=dict(
+            mode="eis", c=PAPER["elastic_bound"], query_label_sets=qls,
+            backend="flat", metric="l2", storage=storage, fused="auto",
+            device=dev))
+        warm = se.warmup_serving([k], 1, N_QUERIES,
+                                 delta_rows_hint=STREAM_ROUNDS
+                                 * STREAM_INSERT)
+        ins_s, del_s, search_s = [], [], []
+        for r, (x_r, ls_r, victims) in enumerate(rounds):
+            clock.sync()
+            t0 = time.perf_counter()
+            ids = se.insert(x_r, ls_r)
+            clock.sync()
+            ins_s.append(time.perf_counter() - t0)
+            if ids[0] != n + r * STREAM_INSERT:
+                raise AssertionError(f"{name}: round {r} ids start at "
+                                     f"{ids[0]}: a threshold fired")
+            t0 = time.perf_counter()
+            se.delete(victims)
+            clock.sync()
+            del_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            pend_d, pend_i = se.search_batched(qv, qls, k)
+            search_s.append(time.perf_counter() - t0)
+        st = se.stats()
+        fired = len(se.compaction_log)
+        recall = recall_at_k(pend_i, truth, sentinel)
+        dead_returned = int(np.isin(pend_i[pend_i < sentinel], dead).sum())
+        vs_ref = _stream_cuda_vs_ref(se, qv, qls, k, qsel)
+        before = dict(counts())
+        se.search_batched(qv, qls, k)
+        per_batch = {key: counts()[key] - before[key] for key in before}
+        qb = 1 << (len(qls) - 1).bit_length()
+        qp = np.zeros((qb, qv.shape[1]), np.float32)
+        qp[:len(qls)] = qv
+        lp = np.zeros((qb, eng.label_words.shape[1]), np.int32)
+        lp[:len(qls)] = masks_to_int32_words(encode_many(qls))
+        before = dict(counts())
+        d = se.delta
+        ops.delta_topk(qp, lp, d.vectors, d.label_words, d.norms,
+                       d.tombstones, d.count, k=k, backend="cuda",
+                       fused="auto", device=dev, **d.tier_kwargs())
+        delta_launches = {key: counts()[key] - before[key] for key in before}
+        pending = _serve_numbers(se.search_batched, qv, qls, k)
+        delta = dict(capacity=d.capacity, count=d.count,
+                     bytes=d.nbytes, tier_bytes=d.tier_nbytes)
+        clock.sync()
+        t0 = time.perf_counter()
+        rep = se.flush()
+        clock.sync()
+        flush_s = time.perf_counter() - t0
+        id_map = np.append(rep["id_map"], len(se.base.label_sets))
+        flushed = se.search_batched(qv, qls, k)
+        vs_flushed = _same_to_tier(
+            flushed, (pend_d, id_map[pend_i].astype(np.int32)),
+            bitwise=not int8, tag=f"{name}: flushed vs pending")
+        after = _serve_numbers(se.search_batched, qv, qls, k)
+        res = dict(
+            storage=storage, fused="auto", warmup_seconds=warm["seconds"],
+            warmup_launches=warm["programs"],
+            insert_rows_per_s=STREAM_INSERT / float(np.median(ins_s)),
+            insert_seconds=ins_s,
+            delete_ids_per_s=(STREAM_DELETE_BASE + STREAM_DELETE_NEW)
+            / float(np.median(del_s)),
+            delete_seconds=del_s, round_batch_seconds=search_s,
+            thresholds_fired=fired, live_rows=st.live_rows,
+            tombstoned_rows=st.tombstoned_rows, delta_rows=st.delta_rows,
+            delta=delta, recall_at_10=recall, dead_ids_returned=dead_returned,
+            cuda_vs_ref=vs_ref, launches_per_1000_query_batch=per_batch,
+            delta_launches_per_batch={key: v for key, v
+                                      in delta_launches.items() if v},
+            pending=pending,
+            static_f32_fused_warm_qps=static["f32/fused=auto"]["warm_qps"],
+            static_warm_qps=static[name]["warm_qps"],
+            flush_seconds=flush_s, flush_report_seconds=rep["seconds"],
+            flushed_rows=len(se.base.label_sets),
+            flushed_vs_pending=vs_flushed, after_flush=after)
+        emit("stream_engine", **res)
+        if fired:
+            raise AssertionError(f"{name}: {fired} compaction(s) fired "
+                                 f"before the flush")
+        if recall < 0.999 or dead_returned:
+            raise AssertionError(f"{name}: recall@10 {recall}, "
+                                 f"{dead_returned} dead ids returned")
+        out["engines"][name] = res
+        del se, eng
+        torch.cuda.empty_cache()
+
+    # deletes pending on the ivf engine (an insert would fold: a full ivf
+    # rebuild at 10^6 rows)
+    se = StreamingEngine(ivf_eng)
+    victims = np.random.default_rng(STREAM_SEED + 1).choice(
+        n, IVF_STREAM_DELETES, replace=False)
+    t0 = time.perf_counter()
+    se.delete(victims)
+    del_s = time.perf_counter() - t0
+    before = dict(counts())
+    t0 = time.perf_counter()
+    _, ids = se.search_batched(qv, qls, k)
+    first_s = time.perf_counter() - t0
+    per_batch = {key: counts()[key] - before[key] for key in before}
+    dead_returned = int(np.isin(ids[ids < n], victims).sum())
+    vs_ref = _ivf_cuda_vs_ref(ivf_eng, qv, qls, k, qsel, dev,
+                              search=se.search_batched)
+    if se.base is not ivf_eng or se.compaction_log:
+        raise AssertionError("ivf stream: a delete folded")
+    out["ivf"] = dict(deletes=IVF_STREAM_DELETES, delete_seconds=del_s,
+                      first_batch_seconds=first_s,
+                      keys_with_tombstones=len(se._private_tombs()),
+                      dead_ids_returned=dead_returned, cuda_vs_ref=vs_ref,
+                      launches_per_1000_query_batch=per_batch,
+                      **_serve_numbers(se.search_batched, qv, qls, k))
+    emit("stream_ivf", **out["ivf"])
+    if dead_returned:
+        raise AssertionError(f"ivf stream: {dead_returned} dead ids returned")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3041,6 +3369,11 @@ def main() -> int:
         launches[name] = at_ivf[name] + at_scan[name]
     launches["gather_distance"] = at_graph["gather_distance"]
     launches["graph_walk"] = at_graph["graph_walk"]
+    drive("stream_path",
+          ("fused_scan", "segmented_gather_distance", "masked_distance"),
+          lambda: stream_path(dev, data=data, ctx=ctx, static=results,
+                              ivf_eng=ivf_eng, counts=counts, clock=clock))
+    torch.cuda.empty_cache()
     decode_state, at_decode = drive(
         "decode_path", ("flash_decode",), lambda: decode_path(dev))
     emit("decode_path_numbers", **decode_state["stats"],

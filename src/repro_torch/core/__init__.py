@@ -7,6 +7,11 @@
   * sis      — fixed-space selection via ratio binary search (§5)
   * estimator— sampled closure sizes for large scale (§4.2)
   * engine   — LabelHybridEngine: build/search over the device arena
+  * adaptive — weighted selection, workload drift, AdaptiveEngine
+  * stream   — StreamingEngine: insert/delete/flush mutations over a
+               LabelHybridEngine (delta arena + tombstones, DESIGN.md §3.6)
+  * faults   — deterministic named-fault-point injection (the port's own
+               registry)
 """
 from .labels import (  # noqa: F401
     LABEL_WORDS,
@@ -42,3 +47,8 @@ from .engine import (  # noqa: F401
     brute_force_filtered,
     recall_at_k,
 )
+from .adaptive import (AdaptiveEngine, WorkloadMonitor,  # noqa: F401
+                       selection_from_weighted, weighted_select)
+from .stream import StreamingEngine  # noqa: F401
+from .faults import (FAULT_POINTS, FaultPlan, FaultRule,  # noqa: F401
+                     InjectedFault, faultpoint, inject, register_fault_point)

@@ -32,7 +32,8 @@ from ..index import graph as _graph  # noqa: F401  (registers "graph")
 from ..index import ivf as _ivf  # noqa: F401  (registers "ivf")
 from ..index.base import (Arena, as_row_ids, check_global_id_contract,
                           dispatch_padded, get_index_builder, parse_storage,
-                          pow2_bucket, resolve_device, serving_buckets)
+                          pow2_bucket, resolve_device, serving_buckets,
+                          tombstone_bytes)
 from ..kernels import ops as _kernel_ops
 from ..kernels import ref as _ref
 from ..kernels.fused_scan import resolve_fused
@@ -105,10 +106,11 @@ _M_ACHIEVED = _metrics.gauge(
 
 def record_search_telemetry(engine, routed, qmasks, k, n_queries, *,
                             t_start, t_route, tier_bucket=None,
-                            min_bucket=1):
+                            min_bucket=1, tomb_density=None):
     """Per-batch query-path accounting: metrics and query cards.  Called
     only when telemetry is enabled; pure host work.  The port has no
-    program cache yet, so every card reports ``recompiled=False``."""
+    program cache yet, so every card reports ``recompiled=False``.
+    ``tomb_density`` (a streaming batch) is the stream's deleted share."""
     t_end = time.perf_counter()
     backend = engine.backend
     arena = engine.arena
@@ -156,7 +158,7 @@ def record_search_telemetry(engine, routed, qmasks, k, n_queries, *,
                 query_key=qkey, selected_key=skey, n_queries=count,
                 elastic_factor=factor, bound=bound, span_tier=span_tier,
                 q_bucket=q_bucket, dtype=dtype, shortlist=shortlist,
-                tombstone_density=None, recompiled=False,
+                tombstone_density=tomb_density, recompiled=False,
                 backend=backend))
     if tracing:
         tr = _trace.get_tracer()
@@ -261,27 +263,48 @@ class LabelHybridEngine:
 
     def rebase(self, vectors: np.ndarray,
                label_sets: Sequence[tuple[int, ...]], table: GroupTable,
-               selection: EISResult, *,
+               selection: EISResult, *, arena: Arena | None = None,
+               label_words: np.ndarray | None = None,
+               rows_hint: Mapping[tuple[int, ...], np.ndarray] | None = None,
                indexes: Mapping[tuple[int, ...], object] | None = None
                ) -> None:
         """Swap the dataset under the engine and rematerialize — the single
-        home of dataset installation: one upload into a fresh device
-        :class:`Arena` (arena-native backends; private-storage backends
-        copy their rows at build instead), then :meth:`apply_selection`.
-        Every retained index is dropped: it belongs to the old rows.
-        ``indexes`` seeds private indexes already built over THIS dataset's
-        selected keys (:meth:`from_reference_state`); ``apply_selection``
-        reuses them."""
+        home of dataset installation (``__init__`` is a rebase from
+        nothing; a streaming compaction folds tombstones and delta rows
+        into a fresh arena and rebases through here, DESIGN.md §3.6): one
+        upload into a fresh device :class:`Arena` (arena-native backends;
+        private-storage backends copy their rows at build instead), then
+        :meth:`apply_selection`.
+
+        Every retained index and row table is dropped: they belong to the
+        old rows.  ``arena`` installs an already-built arena of this
+        engine's storage (no re-upload); ``label_words`` skips the host
+        re-encode; ``rows_hint`` seeds per-key member lists already in the
+        NEW row numbering (the caller vouches they equal what the new
+        table's ``closure_members`` would give); ``indexes`` seeds private
+        indexes already built over THIS dataset's selected keys
+        (:meth:`from_reference_state`).  ``apply_selection`` reuses the
+        last two."""
         self.vectors = np.ascontiguousarray(vectors, dtype=np.float32)
         self.label_sets = list(label_sets)
         self.table = table
-        self.label_words = masks_to_int32_words(encode_many(self.label_sets))
+        if label_words is None:
+            label_words = masks_to_int32_words(encode_many(self.label_sets))
+        self.label_words = np.ascontiguousarray(label_words, dtype=np.int32)
         check_global_id_contract(len(self.label_sets))
         self.indexes = dict(indexes) if indexes is not None else {}
-        self.segments, self.rows = {}, {}
-        self.arena = (Arena.from_host(self.vectors, self.label_words,
-                                      storage=self.storage, device=self.device)
-                      if self._arena_native else None)
+        self.segments = {}
+        self.rows = dict(rows_hint) if rows_hint is not None else {}
+        if not self._arena_native:
+            self.arena = None
+        else:
+            self.arena = (arena if arena is not None else Arena.from_host(
+                self.vectors, self.label_words, storage=self.storage,
+                device=self.device))
+            if self.arena.storage != self.storage:
+                raise ValueError(
+                    f"installed arena holds {self.arena.storage!r} tiers "
+                    f"but the engine is configured for {self.storage!r}")
         self.apply_selection(selection)
 
     def apply_selection(self, selection: EISResult) -> None:
@@ -434,6 +457,13 @@ class LabelHybridEngine:
                    backend, metric, params, 0.0,
                    storage=state.get("storage", "f32"), device=device,
                    indexes=indexes)
+
+    @property
+    def sentinel(self) -> int:
+        """The empty-slot id: real ids live in [0, sentinel).  For a static
+        engine this is the dataset cardinality; a streaming engine's grows
+        with inserts (``core.stream.StreamingEngine.sentinel``)."""
+        return len(self.label_sets)
 
     # -- routing --------------------------------------------------------------
     def route(self, query_label_set: tuple[int, ...]) -> tuple[int, ...]:
@@ -679,13 +709,16 @@ class LabelHybridEngine:
                             f"{sorted(search_params)}")
 
     def warmup(self, ks: Sequence[int], buckets: Sequence[int],
-               **search_params) -> dict:
+               tomb_variants: bool = False, **search_params) -> dict:
         """Run every launch the first real batches need once on zero
         queries, so they find the kernels built and loaded: on arena-native
         backends every (k ∈ ks, Q-bucket ∈ buckets, candidate-span tier)
         segmented search, on private-storage backends every selected
         index's ``search_padded`` per (k, Q-bucket), with
-        ``search_params``.  Returns ``{"seconds", "programs"}``."""
+        ``search_params``.  ``tomb_variants=True`` (streaming,
+        private-storage backends) also runs each index that takes
+        tombstones once on an all-zero bitmap (the arena's counterpart is
+        ``StreamingEngine.warmup``).  Returns ``{"seconds", "programs"}``."""
         if self._arena_native:
             self._no_search_params(search_params)
         t0 = time.perf_counter()
@@ -704,6 +737,13 @@ class LabelHybridEngine:
                     for index in self.indexes.values():
                         index.search_padded(qz, lz, k, **search_params)
                         programs += 1
+                        if tomb_variants and getattr(
+                                type(index), "supports_tombstones", False):
+                            zt = np.zeros(tombstone_bytes(index.num_vectors),
+                                          np.uint8)
+                            index.search_padded(qz, lz, k, tomb=zt,
+                                                **search_params)
+                            programs += 1
                     continue
                 for lmax in span_tiers:
                     _kernel_ops.segmented_topk(

@@ -15,8 +15,8 @@ add |G| to every subset key of G.  Cost O(Σ_G 2^|G|), exactly the paper's
 §4.2 bound O(Σ 2^|L_i|) — but over *distinct* groups, which under Zipf is
 orders of magnitude smaller than over entries.
 
-Ported from the JAX package without its streaming ``compacted`` and the
-baselines' ``minimal_superset_dag`` (their slices port them).
+Ported from the JAX package without the baselines'
+``minimal_superset_dag`` (their slice ports it).
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
-from .labels import NUM_WORDS, encode_label_set, key_subsets, mask_key
+from .labels import (NUM_WORDS, encode_label_set, key_contains, key_subsets,
+                     mask_key)
 
 EMPTY_KEY: tuple[int, ...] = tuple(0 for _ in range(NUM_WORDS))
 
@@ -81,6 +82,78 @@ class GroupTable:
         """
         return GroupTable(n=len(label_sets), groups=_group_rows(label_sets),
                           closure_sizes={})
+
+    def compacted(self, alive: np.ndarray,
+                  appended_label_sets: Sequence[tuple[int, ...]],
+                  add_new_candidates: bool = True) -> "GroupTable":
+        """Incremental table for a streaming compaction (DESIGN.md §3.6).
+
+        The new table's rows are the surviving old rows (``alive`` bool
+        mask; relative order preserved, renumbered 0..n_alive-1) followed
+        by ``appended_label_sets`` (the live delta rows).  Group membership
+        is remapped with one numpy pass and closure sizes are adjusted
+        arithmetically: −dead per subset of each group that lost rows,
+        +appended per subset of each appended key.  Only *brand-new*
+        candidate keys (subsets first introduced by an appended label set)
+        pay a closure scan over the groups.
+
+        ``add_new_candidates=False`` keeps the candidate set fixed — the
+        setting for tables built over an explicit (restricted) query
+        workload, where appended subsets must not widen the candidate set.
+        """
+        alive = np.asarray(alive, dtype=bool)
+        if alive.shape[0] != self.n:
+            raise ValueError(f"alive mask has {alive.shape[0]} rows, "
+                             f"table has {self.n}")
+        n_alive = int(alive.sum())
+        remap = np.full(self.n, -1, dtype=np.int64)
+        remap[alive] = np.arange(n_alive)
+
+        closure = dict(self.closure_sizes)
+        groups2: dict[tuple[int, ...], np.ndarray] = {}
+        for gkey, rows in self.groups.items():
+            kept = remap[rows]
+            kept = kept[kept >= 0]          # ascending order is preserved
+            dead = rows.size - kept.size
+            if dead:
+                for sub in key_subsets(gkey):
+                    if sub in closure:
+                        closure[sub] -= dead
+            if kept.size:
+                groups2[gkey] = kept
+
+        app: dict[tuple[int, ...], list[int]] = {}
+        keys: dict[tuple[int, ...], tuple[int, ...]] = {}
+        for j, ls in enumerate(appended_label_sets):
+            raw = tuple(ls)
+            key = keys.get(raw)
+            if key is None:     # each distinct set is encoded once
+                key = keys[raw] = mask_key(encode_label_set(raw))
+            app.setdefault(key, []).append(n_alive + j)
+        fresh: list[tuple[int, ...]] = []
+        for gkey, ids in app.items():
+            arr = np.asarray(ids, dtype=np.int64)
+            groups2[gkey] = (np.concatenate([groups2[gkey], arr])
+                             if gkey in groups2 else arr)
+            for sub in key_subsets(gkey):
+                if sub in closure:
+                    closure[sub] += len(ids)
+                elif add_new_candidates:
+                    fresh.append(sub)
+        # brand-new candidates: exact closure over the final groups
+        for sub in fresh:
+            if sub in closure:
+                continue
+            closure[sub] = sum(int(g.size) for gk, g in groups2.items()
+                               if key_contains(gk, sub))
+
+        n_new = n_alive + len(appended_label_sets)
+        # as build(): keys no group contains any more stop being
+        # candidates; the top key always stays and is exact by arithmetic
+        closure = {k: v for k, v in closure.items()
+                   if v > 0 or k == EMPTY_KEY}
+        closure[EMPTY_KEY] = n_new
+        return GroupTable(n=n_new, groups=groups2, closure_sizes=closure)
 
     # -- queries ------------------------------------------------------------
     def closure_members(self, key: tuple[int, ...]) -> np.ndarray:

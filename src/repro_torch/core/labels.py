@@ -92,13 +92,25 @@ def key_subsets(key: tuple[int, ...]):
     """Yield every subset key of ``key`` (including empty and itself).
 
     Classic subset-lattice walk; cost 2^|key| — exactly the paper's
-    O(Σ 2^|L_i|) closure expansion (§4.2).
+    O(Σ 2^|L_i|) closure expansion (§4.2).  Subset ``bits`` holds label
+    ``i`` (the key's labels in ascending order) iff bit ``i`` of ``bits``
+    is set, as in the JAX package; the masks are built with integer
+    arithmetic, one OR a subset, instead of one encode each.
     """
-    labels = decode_label_set(key_to_mask(key))
-    n = len(labels)
-    for bits in range(1 << n):
-        sub = [labels[i] for i in range(n) if bits >> i & 1]
-        yield mask_key(encode_label_set(sub))
+    singles = []          # the key's labels as one-bit masks, ascending
+    for w, word in enumerate(key):
+        word = int(word)
+        while word:
+            low = word & -word
+            singles.append(low << (64 * w))
+            word ^= low
+    subs = [0] * (1 << len(singles))
+    for bits in range(1, len(subs)):
+        low = bits & -bits
+        subs[bits] = subs[bits ^ low] | singles[low.bit_length() - 1]
+    words = range(NUM_WORDS)
+    for sub in subs:
+        yield tuple((sub >> (64 * w)) & 0xFFFFFFFFFFFFFFFF for w in words)
 
 
 def masks_to_int32_words(masks: np.ndarray) -> np.ndarray:

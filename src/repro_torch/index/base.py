@@ -9,6 +9,12 @@ scales and zero-points are byte-identical to the reference's.
 Global-id contract: row ids are int32, the empty-slot sentinel is the
 dataset cardinality ``n`` itself, and therefore ``n`` must be representable
 as int32 — :func:`check_global_id_contract` / :func:`as_row_ids`.
+
+Streaming storage (DESIGN.md §3.6) lives here too: the :class:`Arena`
+carries a packed tombstone bitmap and a mutation ``version``, and
+:class:`DeltaArena` is the fixed-capacity append buffer that absorbs
+inserts without touching the CSR segment table — both consumed by
+``core.stream.StreamingEngine``.
 """
 from __future__ import annotations
 
@@ -248,6 +254,199 @@ class Arena:
     @property
     def nbytes(self) -> int:
         return sum(self.tier_nbytes.values())
+
+
+MIN_DELTA_CAPACITY = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaArena:
+    """Fixed-capacity device append buffer for streaming inserts
+    (DESIGN.md §3.6).
+
+    Inserts land here — scan-tier rows, label words and squared norms at
+    the append cursor — without touching the base arena or the CSR segment
+    table.  Capacity moves through power-of-two tiers; the delta scan
+    (``kernels.ops.delta_topk``) masks slots ``>= count``, so an append
+    that stays inside its tier changes nothing but the cursor.
+
+    Deletes of delta rows set bits in the delta's own packed tombstone
+    bitmap (the :class:`Arena` layout).  Updates return a new instance,
+    which the owning :class:`~repro_torch.core.stream.StreamingEngine`
+    holds; an append that fits the tier writes its slots in place, at or
+    past the old instance's ``count``, which masks them there.  Storage
+    tiers (DESIGN.md §3.8) are the :class:`Arena`'s: appends quantize on
+    the host with :func:`quantize_int8` and take their norms from
+    ``_encode_tier``, the base arena's expression, so a compaction that
+    re-uploads the survivors reproduces the values the delta scan served.
+    """
+    vectors: torch.Tensor        # [cap, D]: f32 | f16 | u8 codes
+    label_words: torch.Tensor    # [cap, W] i32
+    norms: torch.Tensor          # [cap] f32 (of the dequantized scan tier)
+    tombstones: torch.Tensor     # [⌈cap/8⌉] u8; bit set ⇒ slot deleted
+    count: int = 0               # append cursor: slots [0, count) hold rows
+    dtype: str = "f32"           # scan-tier storage: f32 | fp16 | int8
+    scales: torch.Tensor = None  # [cap] f32 (int8 only)
+    zeros: torch.Tensor = None   # [cap] f32 (int8 only)
+    rerank: torch.Tensor = None  # [cap, D] f32 exact rows (rerank tier)
+    rerank_norms: torch.Tensor = None  # [cap] f32 (rerank tier)
+    max_capacity: int | None = None    # growth ceiling; exceeding raises
+
+    @classmethod
+    def empty(cls, dim: int, words: int,
+              capacity: int = MIN_DELTA_CAPACITY, storage: str = "f32",
+              max_capacity: int | None = None, *,
+              device="cuda") -> "DeltaArena":
+        dev = resolve_device(device)
+        cap = pow2_bucket(capacity)
+        if max_capacity is not None:
+            max_capacity = pow2_bucket(max_capacity)
+            if cap > max_capacity:
+                raise CapacityError(
+                    f"initial delta capacity {cap} exceeds "
+                    f"max_capacity {max_capacity}")
+        dtype, has_rerank = parse_storage(storage)
+        code_dtype = {"f32": torch.float32, "fp16": torch.float16,
+                      "int8": torch.uint8}[dtype]
+        int8 = dtype == "int8"
+
+        def z(shape, dt=torch.float32):
+            return torch.zeros(shape, dtype=dt, device=dev)
+        return cls(vectors=z((cap, dim), code_dtype),
+                   label_words=z((cap, words), torch.int32),
+                   norms=z((cap,)),
+                   tombstones=z((tombstone_bytes(cap),), torch.uint8),
+                   dtype=dtype,
+                   scales=(torch.ones(cap, dtype=torch.float32, device=dev)
+                           if int8 else None),
+                   zeros=z((cap,)) if int8 else None,
+                   rerank=z((cap, dim)) if has_rerank else None,
+                   rerank_norms=z((cap,)) if has_rerank else None,
+                   max_capacity=max_capacity)
+
+    @property
+    def capacity(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+    @property
+    def storage(self) -> str:
+        return self.dtype + ("+rerank" if self.rerank is not None else "")
+
+    def tier_kwargs(self) -> dict:
+        return dict(dtype=self.dtype, scales=self.scales, zeros=self.zeros,
+                    rerank=self.rerank, rerank_norms=self.rerank_norms)
+
+    @property
+    def tier_nbytes(self) -> dict:
+        return {
+            "codes": _nbytes(self.vectors),
+            "labels": _nbytes(self.label_words),
+            "norms": _nbytes(self.norms),
+            "scales": _nbytes(self.scales) + _nbytes(self.zeros),
+            "rerank": _nbytes(self.rerank) + _nbytes(self.rerank_norms),
+            "tombstone": _nbytes(self.tombstones),
+        }
+
+    @property
+    def nbytes(self) -> int:
+        return sum(self.tier_nbytes.values())
+
+    def _buffers(self) -> dict:
+        """The cursor-indexed device buffers (absent tiers are not keys)."""
+        bufs = {"vectors": self.vectors, "label_words": self.label_words,
+                "norms": self.norms}
+        if self.scales is not None:
+            bufs["scales"] = self.scales
+            bufs["zeros"] = self.zeros
+        if self.rerank is not None:
+            bufs["rerank"] = self.rerank
+            bufs["rerank_norms"] = self.rerank_norms
+        return bufs
+
+    def grown(self, min_capacity: int) -> "DeltaArena":
+        """Next power-of-two capacity tier holding ``min_capacity`` rows;
+        live slots and the tombstone bitmap are copied on the device.
+        Raises :class:`CapacityError` past ``max_capacity`` before it
+        allocates anything."""
+        cap = pow2_bucket(min_capacity)
+        if cap <= self.capacity:
+            return self
+        if self.max_capacity is not None and cap > self.max_capacity:
+            raise CapacityError(
+                f"delta arena cannot grow to {cap} rows "
+                f"(max_capacity {self.max_capacity}, {self.count} held); "
+                f"flush() to fold the delta into the base arena")
+        old = self.capacity
+        grown_bufs = {}
+        for name, buf in self._buffers().items():
+            wide = torch.zeros((cap,) + tuple(buf.shape[1:]),
+                               dtype=buf.dtype, device=buf.device)
+            wide[:old] = buf
+            grown_bufs[name] = wide
+        if "scales" in grown_bufs:
+            # untouched slots keep scale 1.0 (masked by count anyway; the
+            # dequant of an all-zero slot stays finite)
+            grown_bufs["scales"][old:] = 1.0
+        tomb = torch.zeros(tombstone_bytes(cap), dtype=torch.uint8,
+                           device=self.device)
+        tomb[:self.tombstones.shape[0]] = self.tombstones
+        return dataclasses.replace(self, tombstones=tomb, **grown_bufs)
+
+    def appended(self, vectors: np.ndarray,
+                 label_words: np.ndarray) -> "DeltaArena":
+        """Append ``m`` rows at the cursor.  The batch is zero-padded to a
+        power of two (pad rows: code 0, scale 1, zero 0, dequantized
+        exactly 0), encoded on the host, and written as one slice copy a
+        buffer at ``[count, count + m_pad)``; pad slots past the new cursor
+        stay masked until a later append overwrites them.  Growth, the one
+        step that can raise, runs before any buffer is written."""
+        m = vectors.shape[0]
+        if m == 0:
+            return self
+        m_pad = pow2_bucket(m)
+        out = self
+        if self.count + m_pad > self.capacity:
+            out = self.grown(self.count + m_pad)
+        rows = np.zeros((m_pad, out.dim), np.float32)
+        rows[:m] = vectors
+        lws = np.zeros((m_pad, out.label_words.shape[1]), np.int32)
+        lws[:m] = label_words
+        dev = out.device
+        codes, scales, zeros, norms = _encode_tier(rows, out.dtype, dev)
+        parts = {"vectors": codes, "label_words": torch.from_numpy(lws).to(dev),
+                 "norms": norms}
+        if scales is not None:
+            parts["scales"] = scales
+            parts["zeros"] = zeros
+        if out.rerank is not None:
+            # the expression of Arena.from_host's rerank tier
+            rr = torch.from_numpy(rows).to(dev)
+            parts["rerank"] = rr
+            parts["rerank_norms"] = torch.sum(rr * rr, dim=1)
+        _delta_append(out._buffers(), parts, out.count)
+        return dataclasses.replace(out, count=out.count + m)
+
+    def with_tombstones(self, dead: np.ndarray) -> "DeltaArena":
+        """New DeltaArena whose bitmap marks the host bool mask ``dead``
+        (indexed by slot; may be shorter than the capacity)."""
+        packed = pack_tombstones(np.asarray(dead, dtype=bool), self.capacity)
+        return dataclasses.replace(
+            self, tombstones=torch.from_numpy(packed).to(self.device))
+
+
+def _delta_append(bufs: dict, parts: dict, start: int) -> None:
+    """Write each part into its buffer at rows ``[start, start + len)``:
+    one device slice copy a buffer, in place."""
+    for name, part in parts.items():
+        bufs[name][start:start + part.shape[0]].copy_(part)
 
 
 class VectorIndex(Protocol):

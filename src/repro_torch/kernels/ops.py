@@ -4,6 +4,9 @@
 call per candidate-span tier of a batch, a chunked, label/tombstone
 filtered scan with a running top-k', an optional exact f32 rerank of a
 compressed-scan shortlist, and global ids resolved on the device.
+``delta_topk`` runs the same search over a streaming delta arena, and
+``scatter_topk_rows`` / ``merge_topk`` assemble and merge the base and
+delta results of a streaming batch on the device.
 ``masked_distance`` and ``filtered_topk`` are the dense searches of the
 private-storage indexes (IVF's two distance passes, the private-copy
 ``FlatIndex``); ``gather_distance`` is the graph's per-hop neighbour
@@ -251,6 +254,69 @@ def segmented_topk(q, lq, ax, alw, axn, rows_concat, starts, lens, *, k: int,
     else:
         gid = torch.full_like(pos, n)
     return vals, pos.to(torch.int32), gid.to(torch.int32)
+
+
+def delta_topk(q, lq, dx, dlw, dxn, tomb, count: int, *, k: int,
+               metric: str = "l2", backend: str | None = None,
+               chunk: int | None = None, dtype: str = "f32", scales=None,
+               zeros=None, rerank=None, rerank_norms=None,
+               kprime: int | None = None, fused=False,
+               qtile: int | None = None, device="cuda"):
+    """Label-filtered top-k over a streaming delta arena (DESIGN.md §3.6):
+    :func:`segmented_topk` over an identity row table covering the
+    delta's capacity tier, every query's segment ``[0, count)``, the
+    delta's own tombstones fused into the filter.  The same call as the
+    base scan, so a row scores the same in the delta as in the base arena
+    after a compaction.
+
+    Returns (vals [Q, k] asc, slot [Q, k] int32 delta slots; slot ==
+    capacity ⇒ empty).  :func:`merge_topk` turns slots into stream ids."""
+    dev = resolve_device(device)
+    cap, Q = dx.shape[0], q.shape[0]
+    ident = torch.arange(cap, dtype=torch.int32, device=dev)
+    starts = torch.zeros(Q, dtype=torch.int32, device=dev)
+    lens = torch.full((Q,), min(count, cap), dtype=torch.int32, device=dev)
+    vals, pos, _ = segmented_topk(q, lq, dx, dlw, dxn, ident, starts, lens,
+                                  k=k, lmax=cap, metric=metric,
+                                  backend=backend, chunk=chunk, tomb=tomb,
+                                  dtype=dtype, scales=scales, zeros=zeros,
+                                  rerank=rerank, rerank_norms=rerank_norms,
+                                  kprime=kprime, fused=fused, qtile=qtile,
+                                  device=dev)
+    return vals, pos
+
+
+def scatter_topk_rows(buf_v, buf_i, idx, vals, ids):
+    """Write a tier's first ``len(idx)`` top-k rows into the query-aligned
+    [Q-bucket, k] assembly buffers at rows ``idx`` (int64, on the
+    buffers' device), in place; the tier's zero-pad rows are not
+    written.  Returns the buffers."""
+    g = idx.shape[0]
+    buf_v.index_copy_(0, idx, vals[:g])
+    buf_i.index_copy_(0, idx, ids[:g])
+    return buf_v, buf_i
+
+
+def merge_topk(base_vals, base_gids, delta_vals, delta_slots,
+               base_offset: int, sentinel: int, *, k: int):
+    """Base + delta top-k merge on the device (DESIGN.md §3.6).
+
+    ``base_vals``/``base_gids`` [Q, k]: global ids ascending within equal
+    values (segments list arena rows in ascending order).  ``delta_vals``
+    / ``delta_slots`` [Q, k]: ids ``base_offset + slot``.  Base ids are
+    below delta ids, and :func:`ref.lex_topk` breaks value ties by the
+    concatenation index, so the (value, id) top-k of [base, delta] is the
+    one an engine rebuilt on the union computes.  ``torch.topk`` breaks
+    ties otherwise (ROADMAP C0).  Empty slots become ``sentinel`` with
+    value +inf."""
+    cat_v = torch.cat([base_vals, delta_vals], dim=1)
+    cat_i = torch.cat([base_gids, base_offset + delta_slots], dim=1)
+    vals, sel = ref.lex_topk(cat_v, k)
+    ids = torch.gather(cat_i, 1, sel)
+    empty = torch.isinf(vals)
+    ids = torch.where(empty, sentinel, ids)
+    vals = torch.where(empty, ref.INF, vals)
+    return vals, ids.to(torch.int32)
 
 
 def _gather_scan_distance(q, lq, gid, valid, *, ax, alw, tomb, scales, zeros,

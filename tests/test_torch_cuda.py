@@ -37,7 +37,7 @@ def test_port_on_the_card(dev):
     failed = []
     for check in (_segmented_kernels_and_flat_engine,
                   _dense_kernels_and_ivf_engine, _graph_kernels_and_engine,
-                  _flash_decode_and_batched_decoder):
+                  _flash_decode_and_batched_decoder, _streaming_engine):
         try:
             check(dev)
         except Exception:
@@ -231,3 +231,69 @@ def _flash_decode_and_batched_decoder(dev):
     assert [r.generated for r in done] == solo
     assert fd.flash_decode.launches - before \
         == spec.cfg.n_layers * (dec.steps - steps)
+
+
+def _streaming_engine(dev):
+    """The streaming engine on the card (chip_smoke's phase 4f at a small
+    size): f32 and int8+rerank, fused and unfused, with inserts that grow
+    the delta a tier and base and delta deletes pending: the stream
+    equals an engine rebuilt on the survivors, and after a flush its own
+    pending results through the ``id_map`` (bitwise for f32, ROADMAP C3's
+    tier for int8+rerank); the delta scan launches its kernel."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    from repro_torch.core import (LabelHybridEngine, LabelWorkloadConfig,
+                                  StreamingEngine, generate_label_sets,
+                                  generate_query_label_sets)
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import gather_distance as gd
+
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((6000, 64)).astype(np.float32)
+    ls = generate_label_sets(6000, LabelWorkloadConfig(num_labels=10,
+                                                       seed=3))
+    qv = rng.standard_normal((120, 64)).astype(np.float32)
+    qls = generate_query_label_sets(ls, 120, seed=4, from_base_fraction=0.75)
+    px = rng.standard_normal((700, 64)).astype(np.float32)
+    pls = generate_label_sets(700, LabelWorkloadConfig(num_labels=10,
+                                                       seed=21))
+    for spec in ("f32", "int8+rerank"):
+        for fused in (False, "auto"):
+            se = StreamingEngine.build(x, ls, storage=spec, fused=fused,
+                                       device=dev, min_delta_capacity=256,
+                                       max_delta_fraction=None,
+                                       max_tombstone_fraction=None)
+            ids = se.insert(px[:300], pls[:300])
+            se.delete(rng.choice(6000, 300, replace=False))
+            se.delete(ids[::5])
+            se.insert(px[300:], pls[300:])
+            assert se.delta.capacity == 1024
+            alive_b, alive_d = ~se._base_dead, ~se._delta_dead
+            surv_x = np.concatenate([x[alive_b], px[alive_d]])
+            surv_ls = ([s_ for s_, a in zip(ls, alive_b) if a]
+                       + [s_ for s_, a in zip(pls, alive_d) if a])
+            surv_ids = np.concatenate([np.flatnonzero(alive_b),
+                                       6000 + np.flatnonzero(alive_d)])
+            rebuilt = LabelHybridEngine.build(surv_x, surv_ls, storage=spec,
+                                              fused=fused, device=dev)
+            before = (fs.fused_segmented_scan.launches,
+                      gd.segmented_gather_distance.launches)
+            pend = se.search_batched(qv, qls, 7)
+            launched = (fs.fused_segmented_scan.launches - before[0],
+                        gd.segmented_gather_distance.launches - before[1])
+            assert launched[0 if fused else 1] > 0
+            d, i = rebuilt.search_batched(qv, qls, 7)
+            i = np.where(i < surv_ids.size,
+                         surv_ids[np.clip(i, 0, surv_ids.size - 1)],
+                         se.sentinel).astype(np.int32)
+            tag = f"stream {spec} fused={fused}"
+            chip_smoke._same_to_tier(pend, (d, i), bitwise=spec == "f32",
+                                     tag=f"{tag} vs rebuilt")
+            id_map = np.append(se.flush()["id_map"], surv_ids.size)
+            chip_smoke._same_to_tier(
+                se.search_batched(qv, qls, 7),
+                (pend[0], id_map[pend[1]].astype(np.int32)),
+                bitwise=spec == "f32", tag=f"{tag} flushed")

@@ -1,6 +1,8 @@
 """The PyTorch/CUDA port stands alone: nothing in ``src/repro_torch/`` or
 ``chip_smoke.py`` imports JAX or the JAX package ``repro`` (the port runs
-on a machine that has neither), in the manner of test_compat_policy.py."""
+on a machine that has neither), in the manner of test_compat_policy.py;
+stdlib-only modules it needs, such as the fault registry, are its own
+copies."""
 from __future__ import annotations
 
 import re
@@ -44,3 +46,10 @@ def test_port_imports_neither_jax_nor_repro():
                     offenders.append(f"{path.relative_to(REPO)}:{lineno} "
                                      f"[{name}] {line.strip()}")
     assert not offenders, "\n".join(offenders)
+    # the streaming engine's fault registry is the port's own copy of the
+    # stdlib-only module, not the JAX package's
+    faults = REPO / "src" / "repro_torch" / "core" / "faults.py"
+    assert "def faultpoint(" in faults.read_text(encoding="utf-8")
+    stream = (REPO / "src" / "repro_torch" / "core" / "stream.py").read_text(
+        encoding="utf-8")
+    assert "from .faults import" in stream
